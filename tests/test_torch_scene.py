@@ -1,0 +1,94 @@
+"""The port's scene tables against the JAX package's, leaf by leaf.
+
+Every table the port builds must be byte-identical to the JAX leaf of the
+same name (the bvh8t node blocks hold NaN in empty slots, so all tables
+are compared as raw bytes).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_raytracing.device import compile_scene as jax_compile_scene
+from tpu_raytracing.scene.test_scenes import get_test_scene
+from tpu_raytracing_torch.device import compile_scene, from_jax_leaves
+from tpu_raytracing_torch.device.scene_buffers import LEAF_NAMES, SceneMeta
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", params=["coated_diffuse_bunny", "cube"])
+def both(request):
+    scene = get_test_scene(request.param).scene_func()
+    return jax_compile_scene(scene), compile_scene(scene, "cpu")
+
+
+def _jax_leaves(jds):
+    return {k: np.asarray(getattr(jds, k)) for k in LEAF_NAMES}
+
+
+def _same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.ascontiguousarray(a).tobytes()
+            == np.ascontiguousarray(b).tobytes())
+
+
+@pytest.mark.parametrize("leaf", LEAF_NAMES)
+def test_leaf_byte_identical(both, leaf):
+    jds, tds = both
+    want = np.asarray(getattr(jds, leaf))
+    got = getattr(tds, leaf).numpy()
+    assert _same_bytes(want, got), leaf
+
+
+def test_meta_matches_jax(both):
+    jds, tds = both
+    jm = dataclasses.asdict(jds.meta)
+    for f in dataclasses.fields(SceneMeta):
+        want = jm[f.name]
+        want = tuple(tuple(x) if isinstance(x, (list, tuple)) else x
+                     for x in want) if isinstance(want, (list, tuple)) else want
+        assert getattr(tds.meta, f.name) == want, f.name
+
+
+def test_from_jax_leaves_same_scene(both):
+    jds, tds = both
+    fj = from_jax_leaves(_jax_leaves(jds), dataclasses.asdict(jds.meta), "cpu")
+    assert fj.meta == tds.meta
+    for k in LEAF_NAMES:
+        assert _same_bytes(getattr(fj, k).numpy(), getattr(tds, k).numpy()), k
+
+
+def test_bunny_shapes():
+    """The bench scene's bvh8t tables at W=16, LG=16."""
+    tds = compile_scene(get_test_scene("coated_diffuse_bunny").scene_func(),
+                        "cpu")
+    assert tuple(tds.t8_nodes.shape) == (736, 128)
+    assert tuple(tds.t8_meta.shape) == (722, 2)
+    assert tuple(tds.t8_tris.shape) == (3408, 128)
+    assert tds.meta.n_tris == 28586 and tds.meta.t8_stack == 6
+    assert tds.meta.mat_kinds_present == (0, 5)
+
+
+@pytest.mark.parametrize("name", [
+    "sphere",                 # analytic spheres
+    "checkered_plane",        # checker texture
+    "environment_light",      # environment light
+    "dielectric",             # dielectric BSDF
+    "metal",                  # conductor BSDF
+])
+def test_outside_slice_raises(name):
+    scene = get_test_scene(name).scene_func()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        compile_scene(scene, "cpu")
+    jds = jax_compile_scene(scene)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        from_jax_leaves(_jax_leaves(jds), dataclasses.asdict(jds.meta), "cpu")
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compile_scene(get_test_scene("cube").scene_func(), "cuda")

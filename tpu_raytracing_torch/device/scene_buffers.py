@@ -1,0 +1,670 @@
+"""Scene -> torch tensors on one device ("compile" the scene for the port).
+
+Counterpart of tpu_raytracing/device/scene_buffers.py, restricted to the
+leaves the beauty path reads. The layout functions are the JAX package's
+numpy code, ported line for line so that every table is byte-identical to
+the JAX scene's leaf of the same name (tests/test_torch_scene.py): the
+bvh8t tables the CUDA walk reads, the child-pair rows the plain walk reads,
+the shading rows, and the material, texture, light and camera tables.
+
+Only the host-side modules of tpu_raytracing are imported (scene, geometry,
+accel, materials, lights); this module never imports jax.
+
+Scene features outside the slice raise NotImplementedError and name the
+ROADMAP.md item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from tpu_raytracing.accel import build_bvh
+from tpu_raytracing.geometry import Sphere, Transform, TriangleMesh
+from tpu_raytracing.geometry.matrix import apply_point as _np_apply_point
+from tpu_raytracing.lights import DirectionLight, PointLight
+from tpu_raytracing.materials import CoatedDiffuse, ConstantTexture, Diffuse
+from tpu_raytracing.scene import BasicPrimitive, Scene
+from tpu_raytracing.scene.camera import (
+    Orthographic, PinholePerspective, ThinLensPerspective,
+)
+
+F = np.float32
+
+# material kinds
+MAT_DIFFUSE = 0
+MAT_SMOOTH_DIELECTRIC = 1
+MAT_SMOOTH_CONDUCTOR = 2
+MAT_ROUGH_DIELECTRIC = 3
+MAT_ROUGH_CONDUCTOR = 4
+MAT_COATED_DIFFUSE = 5
+
+# texture kinds
+TEX_IMAGE = 0
+TEX_CONSTANT = 1
+TEX_CHECKER = 2
+TEX_SCALE = 3
+TEX_MIX = 4
+
+# light kinds
+LIGHT_POINT = 0
+LIGHT_DIRECTION = 1
+LIGHT_AREA = 2
+
+# camera kinds
+CAM_ORTHOGRAPHIC = 0
+CAM_PINHOLE = 1
+CAM_THIN_LENS = 2
+
+# bvh8t layout at the JAX package's defaults (TPU_RT_T8_W / TPU_RT_T8_LG)
+T8_WIDTH = 16
+T8_LEAF = 16
+N8_PER_BLOCK = 16  # nodes per node block (8 columns each)
+G8_PER_BLOCK = 12  # tri groups per tri block (10 columns each)
+
+# JAX splits scenes whose bvh8t tables exceed this budget into subtree
+# chunks (scene_buffers.py::_t8_chunk_layout); the port walks one table set
+MAX_UNCHUNKED_BYTES = 6 * 1024 * 1024
+
+
+def _unsupported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is outside the ported slice (ROADMAP.md: {item})"
+    )
+
+
+@dataclass(frozen=True)
+class SceneMeta:
+    """Static scene facts the slice branches on (a subset of the JAX
+    SceneMeta, same field names and values)."""
+
+    n_tris: int
+    light_kinds: Tuple[int, ...]
+    mat_kinds_present: Tuple[int, ...]
+    tex_kinds_present: Tuple[int, ...]
+    cam_kind: int
+    width: int
+    height: int
+    near_clip: float
+    far_clip: float
+    aperture_radius: float
+    focal_distance: float
+    root_meta: int
+    bvh2_depth: int
+    t8_stack: int
+    t8_width: int
+    t8_leaf: int
+    slot_kinds: Tuple[Tuple[int, ...], ...] = ()
+
+
+@dataclass
+class DeviceScene:
+    """The slice's scene tables as torch tensors on one device."""
+
+    bvh2_rows: torch.Tensor      # (M, 16) f32 child-pair rows (plain walk)
+    tri_pack: torch.Tensor       # (T, 9) f32 p0 p1 p2 (plain walk)
+    t8_nodes: torch.Tensor       # (Nb*W, 128) f32 bvh8t node blocks
+    t8_meta: torch.Tensor        # (N8, 2) i32 child/leaf base + counts
+    t8_tris: torch.Tensor        # (Gb*LG, 128) f32 bvh8t tri groups
+    tri_shade: torch.Tensor      # (T, 32) f32 shading rows
+    mat_pack: torch.Tensor       # (M, 8) i32 kind, tex0..4, remap
+    mat_tex_rows: torch.Tensor   # (M, 80) f32 the 5 slot texture rows
+    tex_pack: torch.Tensor       # (X, 16) f32 texture rows
+    light_kind: torch.Tensor     # (L,) i32
+    light_va: torch.Tensor       # (L, 3) position / direction
+    light_vb: torch.Tensor       # (L, 3) intensity / radiance
+    cam_raster_to_camera: torch.Tensor  # (4, 4)
+    cam_camera_to_world: torch.Tensor   # (4, 4)
+    cam_min_diff: torch.Tensor          # (4, 3)
+    bounds_center: torch.Tensor  # (3,)
+    bounds_radius: torch.Tensor  # () f32
+    meta: SceneMeta
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_shade.device
+
+
+LEAF_NAMES = tuple(
+    f.name for f in dataclasses.fields(DeviceScene) if f.name != "meta"
+)
+
+
+def _pad_rows(a: np.ndarray, n: int, fill=0) -> np.ndarray:
+    if a.shape[0] >= n:
+        return a
+    pad = np.full((n - a.shape[0], *a.shape[1:]), fill, a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def _round_up(n: int, m: int) -> int:
+    return max(m, ((n + m - 1) // m) * m)
+
+
+def _flatten_primitives(scene: Scene):
+    """(BasicPrimitive, prim_index, composed world Transform) per leaf."""
+    out = []
+
+    def walk(agg_idx: int, outer: Transform):
+        for i in range(len(scene.get_aggregate(agg_idx).children)):
+            idx, t = scene.get_descendant(agg_idx, i)
+            composed = t.compose(outer)
+            prim = scene.get_primitive(idx)
+            if isinstance(prim, BasicPrimitive):
+                out.append((prim, idx, composed))
+            else:
+                walk(idx, composed)
+
+    walk(scene.root_index(), Transform.identity())
+    return out
+
+
+def _child_pair_layout(bvh):
+    """Child-pair rows for the plain stack walk: (rows, root_meta, depth)."""
+    count = bvh.count
+    n_nodes = count.shape[0]
+    is_int = count == 0
+    if bvh.prim_order.shape[0] == 0:
+        return np.zeros((8, 16), F), -1, 1
+    row_of = np.full(n_nodes, -1, np.int64)
+    row_of[np.nonzero(is_int)[0]] = np.arange(int(is_int.sum()))
+    m = int(is_int.sum())
+    if m == 0:
+        root_meta = (int(bvh.left_first[0]) << 3) | int(count[0])
+        return np.zeros((8, 16), F), root_meta, 1
+
+    ints = np.nonzero(is_int)[0]
+    left = ints + 1
+    right = bvh.skip[left].astype(np.int64)
+
+    def child_metas(c):
+        leaf = count[c] > 0
+        return np.where(
+            leaf,
+            (bvh.left_first[c].astype(np.int64) << 3) | count[c],
+            row_of[c] << 3,
+        ).astype(np.int32)
+
+    rows = np.zeros((m, 16), F)
+    rows[:, 0:3] = bvh.node_min[left]
+    rows[:, 3:6] = bvh.node_max[left]
+    rows[:, 6:9] = bvh.node_min[right]
+    cl = (bvh.node_min[left] + bvh.node_max[left]) * 0.5
+    cr = (bvh.node_min[right] + bvh.node_max[right]) * 0.5
+    axis = np.argmax(np.abs(cr - cl), axis=1).astype(np.int32)
+    rows[:, 14] = axis.view(F)
+    rows[:, 9:12] = bvh.node_max[right]
+    rows[:, 12] = child_metas(left).view(F)
+    rows[:, 13] = child_metas(right).view(F)
+
+    depth = np.zeros(n_nodes, np.int64)
+    for i in ints:  # preorder: a parent precedes its children
+        lc = i + 1
+        rc = int(bvh.skip[lc])
+        depth[lc] = depth[rc] = depth[i] + 1
+    maxd = int(depth.max()) + 1
+    rows = _pad_rows(rows, _round_up(m, 8))
+    return rows, 0, maxd
+
+
+def _t8_fld(w: int) -> int:
+    """Meta bit-field width of the child counts (6 bits at W=32)."""
+    return 6 if w == 32 else 5
+
+
+def _bvh8t_layout(bvh, tri_pack, w: int = T8_WIDTH, lg: int = T8_LEAF):
+    """The JAX package's bvh8t tables: W-wide nodes, LG-row tri groups.
+
+    Node `nid` slot `s` box: node_blocks[(nid // 16) * w + s,
+    (nid % 16) * 8 + 0..5]; meta = (child_base << fld | n_int,
+    leaf_base << fld | n_leaf); internal children in slots 0..n_int-1,
+    leaf groups in slots w-1-j; group `q` row `r`:
+    tri_blocks[(q // 12) * lg + r, (q % 12) * 10 + 0..9] = p0, e1, e2, id
+    bits. Empty slots hold NaN boxes.
+
+    Returns (node_blocks, meta, tri_blocks, stack_bound).
+    """
+    count = bvh.count
+    n2 = count.shape[0]
+    if bvh.prim_order.shape[0] == 0:
+        return (np.full((w, 128), np.nan, F), np.zeros((1, 2), np.int32),
+                np.zeros((lg, 128), F), 4)
+
+    leaf_idx = np.nonzero(count > 0)[0]
+    lf = bvh.left_first.astype(np.int64)
+    if not np.all(lf[leaf_idx][1:] == lf[leaf_idx][:-1] + count[leaf_idx][:-1]):
+        raise ValueError("BVH prim ranges not contiguous in preorder")
+    csum = np.concatenate([[0], np.cumsum(count)]).astype(np.int64)
+    total = csum[bvh.skip] - csum[np.arange(n2)]
+    pos = np.searchsorted(leaf_idx, np.arange(n2))
+    first = lf[leaf_idx[np.minimum(pos, len(leaf_idx) - 1)]]
+
+    ext = np.maximum(bvh.node_max - bvh.node_min, 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    skip = bvh.skip
+
+    def mergeable(i):
+        return count[i] > 0 or total[i] <= lg
+
+    # BFS collapse; node id = queue position; internal children contiguous
+    queue = [0]
+    qi = 0
+    node_slots = []
+    child_base = []
+    depth = [0]
+    maxd = 0
+    while qi < len(queue):
+        r = queue[qi]
+        qi += 1
+        maxd = max(maxd, depth[qi - 1])
+        if mergeable(r):  # only possible for the root
+            node_slots.append(([], [r]))
+            child_base.append(0)
+            continue
+        cut = [r + 1, int(skip[r + 1])]
+        while len(cut) < w:
+            exp = [c for c in cut if not mergeable(c)]
+            if not exp:
+                break
+            j = max(exp, key=lambda c: (area[c], -c))
+            p = cut.index(j)
+            cut[p:p + 1] = [j + 1, int(skip[j + 1])]
+        ints = [c for c in cut if not mergeable(c)]
+        lvs = [c for c in cut if mergeable(c)]
+        child_base.append(len(queue))
+        queue.extend(ints)
+        depth.extend([depth[qi - 1] + 1] * len(ints))
+        node_slots.append((ints, lvs))
+    n8 = len(queue)
+
+    nb = _round_up(n8, N8_PER_BLOCK) // N8_PER_BLOCK
+    node_blocks = np.full((nb * w, 128), np.nan, F)
+    meta = np.zeros((n8, 2), np.int32)
+    groups = []
+    fld = _t8_fld(w)
+    for nid in range(n8):
+        ints, lvs = node_slots[nid]
+        meta[nid, 0] = (child_base[nid] << fld) | len(ints)
+        meta[nid, 1] = (len(groups) << fld) | len(lvs)
+        b, g = divmod(nid, N8_PER_BLOCK)
+        for s, c in enumerate(ints):
+            node_blocks[b * w + s, g * 8:g * 8 + 3] = bvh.node_min[c]
+            node_blocks[b * w + s, g * 8 + 3:g * 8 + 6] = bvh.node_max[c]
+        for j, c in enumerate(lvs):
+            s = w - 1 - j
+            node_blocks[b * w + s, g * 8:g * 8 + 3] = bvh.node_min[c]
+            node_blocks[b * w + s, g * 8 + 3:g * 8 + 6] = bvh.node_max[c]
+            groups.append((int(first[c]), int(total[c])))
+
+    gb = _round_up(max(1, len(groups)), G8_PER_BLOCK) // G8_PER_BLOCK
+    tri_blocks = np.zeros((gb * lg, 128), F)
+    for q, (fst, cnt) in enumerate(groups):
+        b, j = divmod(q, G8_PER_BLOCK)
+        rows = slice(b * lg, b * lg + cnt)
+        p0 = tri_pack[fst:fst + cnt, 0:3]
+        tri_blocks[rows, j * 10:j * 10 + 3] = p0
+        tri_blocks[rows, j * 10 + 3:j * 10 + 6] = tri_pack[fst:fst + cnt, 3:6] - p0
+        tri_blocks[rows, j * 10 + 6:j * 10 + 9] = tri_pack[fst:fst + cnt, 6:9] - p0
+        tri_blocks[rows, j * 10 + 9] = (
+            np.arange(fst, fst + cnt, dtype=np.int32).view(F))
+
+    return node_blocks, meta, tri_blocks, maxd + 3
+
+
+def _accel_tables(tri_arrays):
+    """BVH build + the slice's traversal layouts over one triangle soup.
+
+    tri_arrays: (p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, mat, light, has_n,
+    has_uv) in input order. Returns a dict of host arrays and statics."""
+    (p0, p1, p2, n0, n1, n2, uv0, uv1, uv2,
+     mat, light, has_n, has_uv) = tri_arrays
+    n_tris = p0.shape[0]
+    prim_min = np.minimum(np.minimum(p0, p1), p2)
+    prim_max = np.maximum(np.maximum(p0, p1), p2)
+    bvh = build_bvh(prim_min, prim_max)
+    order = bvh.prim_order
+    tri = [p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, mat, light, has_n, has_uv]
+    if n_tris:
+        tri = [a[order] for a in tri]
+    t_pad = _round_up(n_tris, 8)
+    tri = [_pad_rows(a, t_pad, fill=-1 if k == 10 else 0)
+           for k, a in enumerate(tri)]
+
+    if n_tris * 80 + bvh.n_nodes * 40 > MAX_UNCHUNKED_BYTES:
+        # the root estimate the JAX package chunks on (_t8_chunk_layout)
+        raise _unsupported(
+            "a scene whose bvh8t tables JAX splits into VMEM chunks",
+            "Not ported: bvh8t VMEM chunking; hold the unchunked walk "
+            "against the chunked JAX result first",
+        )
+    tri_pack = np.concatenate(tri[0:3], axis=1).astype(F)
+    bvh2_rows, root_meta, bvh2_depth = _child_pair_layout(bvh)
+    t8_nodes, t8_meta, t8_tris, t8_stack = _bvh8t_layout(bvh, tri_pack)
+    if n_tris:
+        root_min = prim_min.min(axis=0).astype(F)
+        root_max = prim_max.max(axis=0).astype(F)
+    else:
+        root_min = np.full(3, np.inf, F)
+        root_max = np.full(3, -np.inf, F)
+    return dict(
+        tri=tri, tri_pack=tri_pack, bvh2_rows=bvh2_rows,
+        root_meta=int(root_meta), bvh2_depth=int(bvh2_depth),
+        t8_nodes=t8_nodes, t8_meta=t8_meta, t8_tris=t8_tris,
+        t8_stack=int(t8_stack), root_min=root_min, root_max=root_max,
+        n_tris=int(n_tris),
+    )
+
+
+def _tri_shade_rows(tri) -> np.ndarray:
+    """(T, 32) single-gather shading rows from accel-ordered tri arrays."""
+    (p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, mat, light, has_n, has_uv) = tri
+    sh = np.zeros((p0.shape[0], 32), F)
+    sh[:, 0:3] = p0
+    sh[:, 3:6] = p1
+    sh[:, 6:9] = p2
+    sh[:, 9:12] = n0
+    sh[:, 12:15] = n1
+    sh[:, 15:18] = n2
+    sh[:, 18:20] = uv0
+    sh[:, 20:22] = uv1
+    sh[:, 22:24] = uv2
+    sh[:, 24] = mat.astype(np.int32).view(F)
+    sh[:, 25] = light.astype(np.int32).view(F)
+    sh[:, 26] = has_n.astype(np.int32).view(F)
+    sh[:, 27] = has_uv.astype(np.int32).view(F)
+    return sh
+
+
+def _normal_matrix(t: Transform) -> np.ndarray:
+    return t.inverse[:3, :3].T.copy()
+
+
+def _triangle_soup(scene: Scene):
+    """World-space triangle arrays of every mesh (compile_scene's loop)."""
+    prims = _flatten_primitives(scene)
+    occ_count: dict = {}
+    for _, prim_idx, _ in prims:
+        occ_count[prim_idx] = occ_count.get(prim_idx, 0) + 1
+    parts = [[] for _ in range(13)]
+    for prim, prim_idx, t in prims:
+        mat_id = prim.material if prim.material is not None else 0
+        light_id = prim.area_light if prim.area_light is not None else -1
+        shape = prim.shape
+        if isinstance(shape, Sphere):
+            raise _unsupported("an analytic sphere", "Next: spheres")
+        if not isinstance(shape, TriangleMesh):
+            raise TypeError(f"unknown shape: {shape}")
+        if (occ_count[prim_idx] > 1 and prim.area_light is None
+                and shape.mesh.tris.shape[0] >= 16):
+            # JAX builds these as a shared BLAS (INSTANCE_MIN_TRIS = 16)
+            raise _unsupported("an instanced mesh", "Next: instances")
+        mesh = shape.mesh
+        nt = mesh.tris.shape[0]
+        if nt == 0:
+            continue
+        m = t.forward
+        verts = mesh.vertices @ m[:3, :3].T + m[:3, 3]
+        tri = mesh.tris.astype(np.int64)
+        parts[0].append(verts[tri[:, 0]])
+        parts[1].append(verts[tri[:, 1]])
+        parts[2].append(verts[tri[:, 2]])
+        if mesh.has_normals:
+            norms = mesh.normals @ _normal_matrix(t).T
+            for k in range(3):
+                parts[3 + k].append(norms[tri[:, k]])
+            parts[11].append(np.ones(nt, bool))
+        else:
+            z = np.zeros((nt, 3), F)
+            for k in range(3):
+                parts[3 + k].append(z)
+            parts[11].append(np.zeros(nt, bool))
+        if mesh.has_uvs:
+            for k in range(3):
+                parts[6 + k].append(mesh.uvs[tri[:, k]])
+            parts[12].append(np.ones(nt, bool))
+        else:
+            z = np.zeros((nt, 2), F)
+            for k in range(3):
+                parts[6 + k].append(z)
+            parts[12].append(np.zeros(nt, bool))
+        parts[9].append(np.full(nt, mat_id, np.int32))
+        parts[10].append(np.full(nt, light_id, np.int32))
+
+    shapes = [(3,)] * 6 + [(2,)] * 3 + [()] * 4
+    dtypes = [F] * 9 + [np.int32, np.int32, bool, bool]
+    return tuple(
+        np.concatenate(p, axis=0).astype(dt) if p else np.zeros((0, *sh), dt)
+        for p, sh, dt in zip(parts, shapes, dtypes)
+    )
+
+
+def _material_tables(scene: Scene):
+    n_mats = max(1, len(scene.materials))
+    mat_kind = np.zeros(n_mats, np.int32)
+    mat_tex = np.full((n_mats, 5), -1, np.int32)
+    mat_remap = np.zeros(n_mats, bool)
+    kinds_present = set()
+    for i, m in enumerate(scene.materials):
+        if isinstance(m, Diffuse):
+            mat_kind[i] = MAT_DIFFUSE
+            mat_tex[i, 0] = m.albedo
+        elif isinstance(m, CoatedDiffuse):
+            mat_kind[i] = MAT_COATED_DIFFUSE
+            mat_tex[i, 0] = m.diffuse_albedo
+            mat_tex[i, 1] = m.dielectric_eta
+            mat_tex[i, 2] = (
+                m.dielectric_roughness if m.dielectric_roughness is not None
+                else -1
+            )
+            mat_tex[i, 3] = m.thickness
+            mat_tex[i, 4] = m.coat_albedo
+            mat_remap[i] = m.dielectric_remap_roughness
+        else:
+            raise _unsupported(
+                f"material {type(m).__name__}",
+                "Next: conductor and dielectric BSDFs",
+            )
+        kinds_present.add(int(mat_kind[i]))
+    if not scene.materials:
+        kinds_present.add(MAT_DIFFUSE)
+    return mat_kind, mat_tex, mat_remap, tuple(sorted(kinds_present))
+
+
+def _texture_tables(scene: Scene, mat_tex: np.ndarray):
+    if scene.images:
+        raise _unsupported("an image texture", "Next: image textures")
+    n_tex = max(1, len(scene.textures))
+    tex_kind = np.full(n_tex, TEX_CONSTANT, np.int32)
+    tex_pack = np.zeros((n_tex, 16), F)
+    for i, t in enumerate(scene.textures):
+        if not isinstance(t, ConstantTexture):
+            raise _unsupported(
+                f"texture {type(t).__name__}",
+                "Next: image, checker, scale and mix textures",
+            )
+        tex_pack[i, 0:4] = t.value
+    # int columns: ref0..2 = -1, kind, filter, wrap, n_levels
+    ti = np.zeros((n_tex, 8), np.int32)
+    ti[:, 0:3] = -1
+    ti[:, 3] = tex_kind
+    tex_pack[:, 8:16] = ti.view(F)
+
+    # material-major join of the slot rows; unset slots read a synthetic
+    # constant-zero row (JAX compile_scene's mat_tex_rows)
+    unset_row = np.zeros(16, F)
+    ur_i = np.zeros(8, np.int32)
+    ur_i[3] = TEX_CONSTANT
+    unset_row[8:16] = ur_i.view(F)
+    n_mats = mat_tex.shape[0]
+    mat_tex_rows = np.zeros((n_mats, 5 * 16), F)
+    for j in range(5):
+        rows = tex_pack[np.maximum(mat_tex[:, j], 0)].copy()
+        rows[mat_tex[:, j] < 0] = unset_row
+        mat_tex_rows[:, 16 * j:16 * (j + 1)] = rows
+    # every texture is a constant, so every slot reaches only that kind
+    slot_kinds = tuple((TEX_CONSTANT,) for _ in range(5))
+    return tex_pack, mat_tex_rows, (TEX_CONSTANT,), slot_kinds
+
+
+def _light_tables(scene: Scene):
+    n_lights = len(scene.lights)
+    l_pad = max(1, n_lights)
+    light_kind = np.zeros(l_pad, np.int32)
+    light_va = np.zeros((l_pad, 3), F)
+    light_vb = np.zeros((l_pad, 3), F)
+    kinds = []
+    for i, light in enumerate(scene.lights):
+        if isinstance(light, PointLight):
+            light_kind[i] = LIGHT_POINT
+            light_va[i] = light.position
+            light_vb[i] = light.intensity
+        elif isinstance(light, DirectionLight):
+            light_kind[i] = LIGHT_DIRECTION
+            light_va[i] = light.direction
+            light_vb[i] = light.radiance
+        else:
+            raise _unsupported(
+                f"light {type(light).__name__}",
+                "Next: area and environment lights",
+            )
+        kinds.append(int(light_kind[i]))
+    if scene.environment_light is not None:
+        raise _unsupported("an environment light",
+                           "Next: area and environment lights")
+    return light_kind, light_va, light_vb, tuple(kinds)
+
+
+def _minimum_differentials(cam) -> np.ndarray:
+    """Minimum per-pixel ray differentials: rows x_o, y_o, x_d, y_d."""
+    w2r_inv = cam.world_to_raster.inverse
+    out = np.zeros((4, 3), F)
+    if isinstance(cam.camera_type, Orthographic):
+        origin = _np_apply_point(w2r_inv, [0.0, 0.0, 0.0])
+        out[0] = _np_apply_point(w2r_inv, [1.0, 0.0, 0.0]) - origin
+        out[1] = _np_apply_point(w2r_inv, [0.0, 1.0, 0.0]) - origin
+    else:
+        cx, cy = cam.raster_width / 2.0, cam.raster_height / 2.0
+        center = _np_apply_point(w2r_inv, [cx, cy, 0.0])
+        out[2] = _np_apply_point(w2r_inv, [cx + 1.0, cy, 0.0]) - center
+        out[3] = _np_apply_point(w2r_inv, [cx, cy + 1.0, 0.0]) - center
+    return out
+
+
+def compile_scene(scene: Scene, device) -> DeviceScene:
+    """Build the slice's tables for `scene` on `device`."""
+    acc = _accel_tables(_triangle_soup(scene))
+
+    lo = np.full(3, np.inf)
+    hi = np.full(3, -np.inf)
+    if acc["n_tris"]:
+        lo = np.minimum(lo, acc["root_min"])
+        hi = np.maximum(hi, acc["root_max"])
+    if not np.all(np.isfinite(lo)):
+        lo, hi = np.zeros(3), np.zeros(3)
+    bounds_center = ((lo + hi) * 0.5).astype(F)
+    bounds_radius = F(np.linalg.norm(hi - lo) * 0.5)
+
+    mat_kind, mat_tex, mat_remap, kinds_present = _material_tables(scene)
+    tex_pack, mat_tex_rows, tex_kinds, slot_kinds = _texture_tables(
+        scene, mat_tex)
+    mat_pack = np.zeros((mat_tex.shape[0], 8), np.int32)
+    mat_pack[:, 0] = mat_kind
+    mat_pack[:, 1:6] = mat_tex
+    mat_pack[:, 6] = mat_remap.astype(np.int32)
+    light_kind, light_va, light_vb, light_kinds = _light_tables(scene)
+
+    cam = scene.camera
+    ct = cam.camera_type
+    if isinstance(ct, Orthographic):
+        cam_kind, aperture, focal = CAM_ORTHOGRAPHIC, 0.0, 0.0
+    elif isinstance(ct, PinholePerspective):
+        cam_kind, aperture, focal = CAM_PINHOLE, 0.0, 0.0
+    elif isinstance(ct, ThinLensPerspective):
+        cam_kind = CAM_THIN_LENS
+        aperture, focal = ct.aperture_radius, ct.focal_distance
+    else:
+        raise TypeError(f"unknown camera: {ct}")
+
+    meta = SceneMeta(
+        n_tris=acc["n_tris"],
+        light_kinds=light_kinds,
+        mat_kinds_present=kinds_present,
+        tex_kinds_present=tex_kinds,
+        cam_kind=cam_kind,
+        width=cam.raster_width,
+        height=cam.raster_height,
+        near_clip=float(cam.near_clip),
+        far_clip=float(cam.far_clip),
+        aperture_radius=float(aperture),
+        focal_distance=float(focal),
+        root_meta=acc["root_meta"],
+        bvh2_depth=acc["bvh2_depth"],
+        t8_stack=acc["t8_stack"],
+        t8_width=T8_WIDTH,
+        t8_leaf=T8_LEAF,
+        slot_kinds=slot_kinds,
+    )
+    leaves = dict(
+        bvh2_rows=acc["bvh2_rows"], tri_pack=acc["tri_pack"],
+        t8_nodes=acc["t8_nodes"], t8_meta=acc["t8_meta"],
+        t8_tris=acc["t8_tris"], tri_shade=_tri_shade_rows(acc["tri"]),
+        mat_pack=mat_pack, mat_tex_rows=mat_tex_rows, tex_pack=tex_pack,
+        light_kind=light_kind, light_va=light_va, light_vb=light_vb,
+        cam_raster_to_camera=cam.raster_to_camera.forward,
+        cam_camera_to_world=cam.camera_to_world.forward,
+        cam_min_diff=_minimum_differentials(cam),
+        bounds_center=bounds_center, bounds_radius=bounds_radius,
+    )
+    return _to_device(leaves, meta, device)
+
+
+def _to_device(leaves: dict, meta: SceneMeta, device) -> DeviceScene:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device")
+    return DeviceScene(
+        **{k: torch.from_numpy(np.array(leaves[k], copy=True)).to(device)
+           for k in LEAF_NAMES},
+        meta=meta,
+    )
+
+
+def from_jax_leaves(leaves: dict, meta: dict, device) -> DeviceScene:
+    """Build the port's DeviceScene from a JAX scene's leaves.
+
+    leaves: JAX DeviceScene field name -> numpy array (np.asarray of the
+    leaf); meta: dataclasses.asdict of the JAX SceneMeta. Scenes outside
+    the slice raise NotImplementedError as compile_scene does."""
+    if meta["n_spheres"]:
+        raise _unsupported("an analytic sphere", "Next: spheres")
+    if meta["instances"]:
+        raise _unsupported("an instanced mesh", "Next: instances")
+    if meta["t8_chunk_meta"]:
+        raise _unsupported(
+            "a scene whose bvh8t tables JAX splits into VMEM chunks",
+            "Not ported: bvh8t VMEM chunking")
+    if meta["has_env"]:
+        raise _unsupported("an environment light",
+                           "Next: area and environment lights")
+    if LIGHT_AREA in meta["light_kinds"]:
+        raise _unsupported("light DiffuseAreaLight",
+                           "Next: area and environment lights")
+    if set(meta["tex_kinds_present"]) - {TEX_CONSTANT}:
+        raise _unsupported("a non-constant texture",
+                           "Next: image, checker, scale and mix textures")
+    if set(meta["mat_kinds_present"]) - {MAT_DIFFUSE, MAT_COATED_DIFFUSE}:
+        raise _unsupported("a conductor or dielectric material",
+                           "Next: conductor and dielectric BSDFs")
+    fields = {f.name for f in dataclasses.fields(SceneMeta)}
+    m = SceneMeta(**{k: _freeze(v) for k, v in meta.items() if k in fields})
+    return _to_device({k: leaves[k] for k in LEAF_NAMES}, m, device)
+
+
+def _freeze(v):
+    """Lists from dataclasses.asdict back to the hashable tuples."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    return v

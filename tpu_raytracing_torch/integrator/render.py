@@ -1,0 +1,326 @@
+"""The path-tracing integrator: batched bounce loop + render driver.
+
+Counterpart of tpu_raytracing/integrator/render.py on its plain path (what
+JAX runs on the CPU): the primary bounce is peeled, then every later bounce
+runs until no lane is alive, with no bounce sort, alive-prefix ladder,
+join permutation or NEE stacking (those TPU schedules give the plain
+path's output, tests/test_trace_modes.py). Semantics:
+
+- primary rays respect near/far clip, secondary rays use t_min = 1e-4;
+- directly hit emitters contribute only after specular bounces;
+- NEE over every light, shadow rays from the light toward the point, and
+  zero-contribution samples (pdf <= 0 or back-facing) skip the walk;
+- BSDF importance sampling continues the path.
+
+`rays_traced` counts as JAX does: lanes alive at the top of each bounce
+plus the shadow rays actually walked.
+"""
+from __future__ import annotations
+
+import functools
+import logging
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_raytracing.settings import AovFlags, RaytracerSettings, RenderOutput
+
+from ..device.scene_buffers import (
+    DeviceScene, LIGHT_DIRECTION, LIGHT_POINT, compile_scene,
+)
+from ..ops import bsdf as B
+from ..ops.bsdf_dispatch import bsdf_eval, bsdf_sample
+from ..ops.camera_rays import generate_rays
+from ..ops.light_sampling import light_emitted_radiance, sample_light
+from ..ops.linalg import dot, make_orthonormal_basis
+from ..ops.rng import SamplerConfig, make_stream
+from ..ops.textures import EvalCtx, eval_ctx_from_differentials
+from ..ops.traverse import hit_details, intersect_scene, occluded
+
+log = logging.getLogger("tpu_raytracing_torch")
+
+# f32 everywhere: no TF32 in any matmul or convolution the port reaches
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+GPU_CHUNK = 1 << 18  # pixels per dispatch on the card (the whole bench frame)
+CPU_CHUNK = 1 << 13
+
+
+def default_chunk(device) -> int:
+    return GPU_CHUNK if torch.device(device).type == "cuda" else CPU_CHUNK
+
+
+class StaticSettings(NamedTuple):
+    """The subset of RaytracerSettings the bounce loop reads."""
+
+    max_ray_depth: int
+    accumulate_bounces: bool
+    light_sample_count: int
+    samples_per_pixel: int
+    antialias_primary_rays: bool
+
+    @staticmethod
+    def from_settings(s: RaytracerSettings) -> "StaticSettings":
+        return StaticSettings(
+            max_ray_depth=int(s.max_ray_depth),
+            accumulate_bounces=bool(s.accumulate_bounces),
+            light_sample_count=int(s.light_sample_count),
+            samples_per_pixel=int(s.samples_per_pixel),
+            antialias_primary_rays=bool(s.antialias_primary_rays),
+        )
+
+
+def _to_local(x, y, n, v):
+    return torch.stack([dot(v, x), dot(v, y), dot(v, n)], dim=-1)
+
+
+def _to_world(x, y, n, v):
+    return v[..., 0:1] * x + v[..., 1:2] * y + v[..., 2:3] * n
+
+
+class _PathState(NamedTuple):
+    ray_o: torch.Tensor
+    ray_d: torch.Tensor
+    alive: torch.Tensor
+    specular: torch.Tensor
+    radiance: torch.Tensor
+    path_weight: torch.Tensor
+    stream: object
+    rays: torch.Tensor  # () int64 on the device
+
+
+def _bounce(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
+            s: _PathState, depth: int, primary: bool, diff) -> _PathState:
+    """One bounce of every lane (the JAX body with static_primary)."""
+    alive, ray_o, ray_d = s.alive, s.ray_o, s.ray_d
+    radiance, pw, specular, stream = (s.radiance, s.path_weight, s.specular,
+                                      s.stream)
+    Bb = ray_o.shape[0]
+    dev = ray_o.device
+    f32 = ray_o.dtype
+    kinds = ds.meta.mat_kinds_present
+
+    rays = s.rays + alive.sum()
+    if primary:
+        t_min, t_max = ds.meta.near_clip, ds.meta.far_clip
+    else:
+        t_min, t_max = 1.0e-4, float("inf")
+    t, prim = intersect_scene(
+        ds, ray_o, ray_d,
+        torch.full((Bb,), t_min, dtype=f32, device=dev),
+        torch.full((Bb,), t_max, dtype=f32, device=dev),
+        active=alive,
+    )
+    alive = alive & (prim >= 0)
+    hit = hit_details(ds, ray_o, ray_d, t, prim)
+
+    add_zero_bounce = st.accumulate_bounces or st.max_ray_depth == depth
+    emit_mask = alive & specular & add_zero_bounce & (hit.light >= 0)
+    radiance = radiance + torch.where(
+        emit_mask[:, None], pw * light_emitted_radiance(ds, hit.light), 0.0)
+
+    # material evaluation context (antialiased on primary hits)
+    plain_ctx = EvalCtx.without_antialiasing(hit.uv)
+    has_derivs = st.antialias_primary_rays and primary
+    if has_derivs:
+        aa_ctx = eval_ctx_from_differentials(hit, ray_o, ray_d, diff)
+
+        def sel(a, b):
+            return torch.where(alive, a, b)
+
+        ctx = EvalCtx(
+            uv=hit.uv,
+            dudx=sel(aa_ctx.dudx, plain_ctx.dudx),
+            dudy=sel(aa_ctx.dudy, plain_ctx.dudy),
+            dvdx=sel(aa_ctx.dvdx, plain_ctx.dvdx),
+            dvdy=sel(aa_ctx.dvdy, plain_ctx.dvdy),
+        )
+    else:
+        ctx = plain_ctx
+
+    params = B.get_bsdf_params(ds, hit.material, ctx, has_derivs=has_derivs)
+    bx, by = make_orthonormal_basis(hit.normal)
+    wo = _to_local(bx, by, hit.normal, -ray_d)
+
+    depth = depth + 1
+    alive = alive & (depth <= st.max_ray_depth)
+
+    add_direct = st.accumulate_bounces or depth == st.max_ray_depth
+    nee_mask = alive & ~B.is_delta_bsdf(params) & add_direct
+
+    direct = torch.zeros((Bb, 3), dtype=f32, device=dev)
+    for li, lk in enumerate(ds.meta.light_kinds):
+        n_s = (1 if lk in (LIGHT_POINT, LIGHT_DIRECTION)
+               else st.light_sample_count)
+        contrib = torch.zeros((Bb, 3), dtype=f32, device=dev)
+        for _ in range(n_s):
+            ls, stream = sample_light(ds, li, hit.point, cfg, stream)
+            wi = _to_local(bx, by, hit.normal, -ls.direction)
+            cos_theta = torch.clamp(wi[..., 2], min=0.0)
+            shadow_act = nee_mask & (ls.pdf > 0.0) & (cos_theta > 0.0)
+            rays = rays + shadow_act.sum()
+            occ = occluded(
+                ds, ls.origin, ls.direction,
+                torch.full((Bb,), 1.0e-3, dtype=f32, device=dev),
+                ls.distance - 1.0e-3,
+                active=shadow_act,
+            )
+            good = shadow_act & ~occ
+            f = bsdf_eval(params, wo, wi, kinds, active=good)
+            safe_pdf = torch.where(ls.pdf == 0.0, 1.0, ls.pdf)
+            c = f * ls.radiance * (cos_theta / safe_pdf)[:, None]
+            contrib = contrib + torch.where(good[:, None], c, 0.0)
+        direct = direct + contrib / n_s
+    radiance = radiance + pw * direct
+
+    # continuation via BSDF importance sampling
+    samp, stream = bsdf_sample(
+        params, wo, B.ALL_COMPONENTS, cfg, stream, kinds, active=alive)
+    ok = samp.valid & (samp.pdf > 0.0) & torch.any(samp.f != 0.0, dim=-1)
+    alive = alive & ok
+    alive3 = alive[:, None]
+    cos_theta = torch.abs(samp.wi[..., 2])
+    safe_pdf = torch.where(samp.pdf == 0.0, 1.0, samp.pdf)
+    pw = torch.where(alive3, pw * samp.f * (cos_theta / safe_pdf)[:, None], pw)
+    specular = torch.where(alive, (samp.component & B.SPECULAR) != 0, specular)
+    new_d = _to_world(bx, by, hit.normal, samp.wi)
+    return _PathState(
+        ray_o=torch.where(alive3, hit.point, ray_o),
+        ray_d=torch.where(alive3, new_d, ray_d),
+        alive=alive,
+        specular=specular,
+        radiance=radiance,
+        path_weight=pw,
+        stream=stream,
+        rays=rays,
+    )
+
+
+def trace_radiance(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
+                   px, py, sample_idx: int, active=None):
+    """Radiance of one sample of each pixel; returns ((B, 3), rays (0-d))."""
+    stream = make_stream(px, py, sample_idx)
+    ray_o, ray_d, diff, stream = generate_rays(
+        ds, px, py, cfg, stream, st.samples_per_pixel, jitter=True)
+    Bb = px.shape[0]
+    dev = ray_o.device
+    alive0 = (torch.ones(Bb, dtype=torch.bool, device=dev) if active is None
+              else active)
+    s = _PathState(
+        ray_o=ray_o, ray_d=ray_d, alive=alive0,
+        specular=torch.ones(Bb, dtype=torch.bool, device=dev),
+        radiance=torch.zeros((Bb, 3), dtype=ray_o.dtype, device=dev),
+        path_weight=torch.ones((Bb, 3), dtype=ray_o.dtype, device=dev),
+        stream=stream,
+        rays=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+    s = _bounce(ds, cfg, st, s, 0, True, diff)
+    depth = 1
+    while bool(s.alive.any()):
+        s = _bounce(ds, cfg, st, s, depth, False, None)
+        depth += 1
+    return s.radiance, s.rays
+
+
+def render_beauty_chunk(ds: DeviceScene, cfg: SamplerConfig,
+                        st: StaticSettings, px, py, active=None):
+    """Average radiance over spp for one pixel chunk; returns
+    ((B, 3) f32, rays traced (0-d int64 tensor))."""
+    total = torch.zeros((px.shape[0], 3), dtype=torch.float32,
+                        device=px.device)
+    rays = torch.zeros((), dtype=torch.int64, device=px.device)
+    for s in range(st.samples_per_pixel):
+        r, n = trace_radiance(ds, cfg, st, px, py, s, active=active)
+        total = total + r
+        rays = rays + n
+    return total / st.samples_per_pixel, rays
+
+
+def _interleave_bits(v: np.ndarray) -> np.ndarray:
+    v = v.astype(np.uint64)
+    v = (v | (v << 16)) & np.uint64(0x0000FFFF0000FFFF)
+    v = (v | (v << 8)) & np.uint64(0x00FF00FF00FF00FF)
+    v = (v | (v << 4)) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    v = (v | (v << 2)) & np.uint64(0x3333333333333333)
+    v = (v | (v << 1)) & np.uint64(0x5555555555555555)
+    return v
+
+
+@functools.lru_cache(maxsize=8)
+def _pixel_grid(width: int, height: int):
+    """Flat pixel lists in Morton order (+ the inverse permutation).
+    Cached per resolution; callers treat the arrays as read-only."""
+    xs = np.arange(width, dtype=np.uint32)
+    ys = np.arange(height, dtype=np.uint32)
+    px, py = np.meshgrid(xs, ys)
+    px, py = px.reshape(-1), py.reshape(-1)
+    morton = _interleave_bits(px) | (_interleave_bits(py) << np.uint64(1))
+    order = np.argsort(morton, kind="stable")
+    inverse = np.empty_like(order)
+    inverse[order] = np.arange(order.shape[0])
+    return px[order], py[order], inverse
+
+
+def _run_chunked(fn, px, py, device, chunk):
+    """Yield (size, fn(px, py, active)) over fixed-size pixel chunks; the
+    tail chunk is padded with inactive lanes (traced dead, not counted)."""
+    n = px.shape[0]
+    chunk = min(chunk, n)
+    for start in range(0, n, chunk):
+        cpx = px[start:start + chunk].astype(np.int64)
+        cpy = py[start:start + chunk].astype(np.int64)
+        size = cpx.shape[0]
+        act = np.arange(chunk) < size
+        pad = np.zeros(chunk - size, np.int64)
+        cpx, cpy = np.concatenate([cpx, pad]), np.concatenate([cpy, pad])
+        yield size, fn(torch.from_numpy(cpx).to(device),
+                       torch.from_numpy(cpy).to(device),
+                       torch.from_numpy(act).to(device))
+
+
+def render(scene_or_device, settings: RaytracerSettings, device,
+           chunk_pixels: int | None = None) -> RenderOutput:
+    """Full-frame beauty render on `device` ("cuda" or "cpu")."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render(device='cuda'): no CUDA device")
+    if settings.outputs & AovFlags.FIRST_HIT_AOVS:
+        raise NotImplementedError(
+            "AOV outputs are outside the ported slice (ROADMAP.md: Next: AOVs)")
+    if isinstance(scene_or_device, DeviceScene):
+        ds = scene_or_device
+        if ds.device.type != device.type:
+            raise ValueError(f"scene lives on {ds.device}, render on {device}")
+    else:
+        t0 = time.perf_counter()
+        ds = compile_scene(scene_or_device, device)
+        log.info("scene compile took %.3fs", time.perf_counter() - t0)
+
+    cfg = SamplerConfig.from_settings(settings.sampler, settings.seed)
+    st = StaticSettings.from_settings(settings)
+    width, height = ds.meta.width, ds.meta.height
+    out = RenderOutput(width=width, height=height)
+    if not settings.outputs & AovFlags.BEAUTY:
+        return out
+    px, py, unmorton = _pixel_grid(width, height)
+    t0 = time.perf_counter()
+    parts, rays = [], 0
+    for size, (r, n) in _run_chunked(
+            lambda a, b, act: render_beauty_chunk(ds, cfg, st, a, b, act),
+            px, py, device, chunk_pixels or default_chunk(device)):
+        parts.append(r[:size])
+        rays = rays + n
+    beauty = torch.cat(parts).cpu().numpy()
+    out.rays_traced = int(rays)
+    dt = time.perf_counter() - t0
+    log.info("beauty pass took %.3fs (%d rays, %.1f Mrays/s)",
+             dt, out.rays_traced, out.rays_traced / dt / 1e6)
+    beauty = beauty[unmorton].reshape(height, width, 3)
+    bad = ~np.isfinite(beauty)
+    if bad.any():
+        log.warning("%d non-finite radiance pixels", int(bad.any(-1).sum()))
+    out.beauty = beauty
+    return out
