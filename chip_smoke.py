@@ -5,23 +5,33 @@
 Phases (any failure exits nonzero and prints no result):
 
 1. card: `nvidia-smi` name and power limit, and torch's device name;
-2. build: the CUDA kernels from tpu_raytracing_torch/csrc (nvcc, sm_90a);
-3. kernel vs plain: the bvh8t walk against its plain PyTorch version on the
-   same CUDA tensors, on the coated_diffuse_bunny tables: closest-hit on
-   65,536 random rays plus the frame's camera rays, any-hit on random rays
-   plus the frame's shadow rays; both timed at the path's shape;
+2. build: the CUDA kernels from tpu_raytracing_torch/csrc (nvcc, sm_90a,
+   one nvcc per source, all started together);
+3. kernel vs plain: every traversal kernel (bvh8t, brute, quad, quadrow,
+   pair, skip-link walk) against its plain PyTorch version on the same
+   CUDA tensors, on the coated_diffuse_bunny tables: closest-hit on 65,536
+   random rays plus the frame's camera rays, any-hit on random rays plus
+   the frame's shadow rays. At the path's shape (the frame's camera rays,
+   its shadow rays) each is timed and its per-ray counters are read once,
+   from which the card's bound for the same work is computed;
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
-   one light sample on cuda, through the kernel (launch counts reset just
-   before, read just after);
+   one light sample on cuda, through the bvh8t kernel (launch counts reset
+   just before, read just after);
 5. slice parity: two blocks of 4,096 Morton-order pixels (2 spp, depth 8),
    one of walls and floor and one mostly on the bunny, on cuda with the
-   kernel against cpu with the plain versions.
+   kernels against cpu with the plain versions;
+6. the kernel switch: the 500x500 frame at 1 spp, depth 8, rendered on cuda
+   with bvh8t and then with each walk the JAX switch selects
+   (TPU_RT_PALLAS_KERNEL, TPU_RT_BRUTE_GROUPS), its launch counts reset
+   just before and read just after, and held against the bvh8t frame.
 
-The last two lines are {"kernels": [...]} and {"ok": true, "device": ...}.
-Needs one CUDA device; the port never imports jax.
+The last two lines are {"kernels": [...]} and {"ok": true, "device": ...},
+with the card's name and power limit on a line before them. Needs one CUDA
+device; the port imports neither jax nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -34,12 +44,45 @@ import numpy as np
 import torch
 
 SCENE = "coated_diffuse_bunny"
-KERNEL_SOURCE = "tpu_raytracing_torch/csrc/bvh8t_walk.cu"
-KERNEL_REPLACES = "tpu_raytracing/ops/traverse_pallas.py:931"  # _t8_kernel
+CSRC = "tpu_raytracing_torch/csrc/"
+PALLAS = "tpu_raytracing/ops/traverse_pallas.py"
+SWITCH = ("TPU_RT_PALLAS_KERNEL", "TPU_RT_BRUTE_GROUPS")
+# the JSON entries: name, walk, modes, source, the TPU kernel it replaces
+KERNELS = (
+    ("bvh8t_walk<closest_hit>", "bvh8t", ("closest_hit",), "bvh8t_walk.cu",
+     ":931"),  # _t8_kernel
+    ("bvh8t_walk<any_hit>", "bvh8t", ("any_hit",), "bvh8t_walk.cu", ":931"),
+    ("t8_brute", "brute", ("closest_hit", "any_hit"), "t8_brute.cu",
+     ":1470"),  # _t8_brute_kernel
+    ("quad_walk<quad>", "quad", ("closest_hit", "any_hit"), "quad_walk.cu",
+     ":494"),  # _quad_kernel
+    ("quad_walk<quadrow>", "quadrow", ("closest_hit", "any_hit"),
+     "quad_walk.cu", ":494"),
+    ("pair_walk", "pair", ("closest_hit", "any_hit"), "pair_walk.cu",
+     ":288"),  # _pair_kernel
+    ("skip_walk", "walk", ("closest_hit", "any_hit"), "skip_walk.cu",
+     ":171"),  # _walk_kernel
+)
+# the walks of the kernel switch, in the order phase 3 holds them
+WALK_NAMES = ("bvh8t", "brute", "quad", "quadrow", "pair", "walk")
+# the card's bound (H100 SXM datasheet peaks at 700 W): bytes
+# over 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is longer.
+# Bytes: o, d, t_min, t_max, active in (33 B) and t, best out (8 B) per
+# ray, plus the words of the scene tables the query needs (table_words).
+# Operations, from the kernels' own counters, which count real triangles
+# and real child boxes only: 24 per slab test (6 subtracts, 6 multiplies,
+# 12 min/max) and 44 per Moller-Trumbore test (24 multiplies, 17 adds or
+# subtracts, 3 divides).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+RAY_BYTES = 33 + 8
+SLAB_OPS = 24
+MT_OPS = 44
 N_RANDOM_RAYS = 65536
-PARITY_PIXELS = 4096
 # closest-hit: equal-t ties between different leaves may pick different
-# triangles (the kernel and the plain walk visit leaves in another order)
+# triangles (a kernel and its plain version may visit leaves in another
+# order); the brute kernel repeats its plain version's order bit for bit
+EXACT = ("brute",)
 MAX_TIE_FRACTION = 1e-4
 T_RTOL = 1e-5
 # slice parity. Both devices draw the same random numbers and trace the
@@ -52,6 +95,7 @@ T_RTOL = 1e-5
 # draws a different, equally valid estimate: on the bunny those pixels
 # agree in distribution only (measured on the H100: 99.29% of wall pixels
 # and 93.77% of the bunny block within rtol 1e-3, means within 5e-5).
+PARITY_PIXELS = 4096
 PARITY_BLOCKS = {  # Morton offset -> least share of pixels within rtol
     "walls and floor": (125000, 0.98),
     "65% bunny": (147456, 0.90),
@@ -59,6 +103,14 @@ PARITY_BLOCKS = {  # Morton offset -> least share of pixels within rtol
 PARITY_MEAN_RTOL = 0.01
 PARITY_PIXEL_RTOL = 1e-3
 PARITY_RAYS_RTOL = 0.005
+# the kernel switch: every walk finds the bvh8t walk's winners (t
+# bit-equal) except on equal-t ties between leaves, so the frames are the
+# same but for the pixels whose paths meet such a tie, and the coat
+# streams those re-seed
+SWITCH_RAYS_RTOL = 1e-3
+SWITCH_MEAN_RTOL = 1e-3
+SWITCH_PIXEL_RTOL = 1e-5
+SWITCH_MIN_CLOSE = 0.99
 
 
 def card_line() -> str:
@@ -85,6 +137,26 @@ def time_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def kernel_switch(**env):
+    """Set the JAX kernel switch's variables for the block (None unsets)."""
+    old = {k: os.environ.get(k) for k in SWITCH}
+    try:
+        for k in SWITCH:
+            v = env.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def random_rays(ds, n: int, seed: int, device):
     """tests/test_pallas_traverse.py::_rays on the port's scene."""
     rng = np.random.default_rng(seed)
@@ -96,16 +168,112 @@ def random_rays(ds, n: int, seed: int, device):
     return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
 
 
+def walks():
+    """walk -> (kernel wrapper, plain version)."""
+    from tpu_raytracing_torch.ops import traverse_kernels as TK
+    from tpu_raytracing_torch.ops.traverse_bvh8t import intersect_tris_plain
+
+    plains = {
+        "bvh8t": intersect_tris_plain,
+        "brute": TK.intersect_tris_brute_plain,
+        "quad": TK.intersect_tris_quad_plain,
+        "quadrow": lambda *a: TK.intersect_tris_quad_plain(*a, rowrec=True),
+        "pair": intersect_tris_plain,
+        "walk": TK.intersect_tris_skiplink_plain,
+    }
+    return {w: (TK.WALKS[w], plains[w]) for w in WALK_NAMES}
+
+
+def compare(walk, mode, tk, bk, tp, bp):
+    """Hold a kernel's (t, best) against its plain version's; returns
+    (ok, max |dt| or hit-bit mismatches, report)."""
+    tk, bk, tp, bp = (x.cpu().numpy() for x in (tk, bk, tp, bp))
+    n = bk.shape[0]
+    if walk in EXACT:
+        wrong = int((bk != bp).sum()
+                    + (tk.view(np.int32) != tp.view(np.int32)).sum())
+        return wrong == 0, float(wrong), (
+            f"{n} rays, {int((bk >= 0).sum())} hits, {wrong} winner or t-bit "
+            "differences (bit-equal required)")
+    if mode == "any_hit":
+        wrong = int(((bk >= 0) != (bp >= 0)).sum())
+        return wrong == 0, float(wrong), (
+            f"{n} rays, {int((bk >= 0).sum())} occluded, {wrong} hit-bit "
+            "mismatches")
+    both = (bk >= 0) & (bp >= 0)
+    diff = bk != bp
+    ties = diff & both & (tk == tp)
+    wrong = int((diff & ~ties).sum())
+    err = float(np.max(np.abs(tk[both] - tp[both]))) if both.any() else 0.0
+    t_ok = bool(np.allclose(tk[both], tp[both], rtol=T_RTOL, atol=0.0))
+    ok = wrong == 0 and ties.sum() < MAX_TIE_FRACTION * n and t_ok
+    return ok, err, (
+        f"{n} rays, {int((bk >= 0).sum())} hits, {int(ties.sum())} equal-t "
+        f"ties, {wrong} other winner mismatches, max |dt| {err:.3g} (rtol "
+        f"{T_RTOL})")
+
+
+def table_words(ds, walk: str) -> int:
+    """f32 words of the scene tables that the walk's query needs, each read
+    once: the records that hold data, and of each only the words the kernel
+    reads. Padding is not counted: the zero rows that fill a bvh8t group or
+    a tri_rows row, the empty slots of a node, the zero records past the
+    last, and lanes 32-127 of the bvh4_rows records."""
+    def table(name, cols):
+        return getattr(ds, name).cpu().numpy().reshape(-1, cols)
+
+    def used(recs):  # records that hold data: padding is all zero
+        return int(np.any(recs != 0, axis=1).sum())
+
+    tri_pack = int(ds.meta.n_tris) * 9  # p0 p1 p2 of each triangle
+    if walk in ("bvh8t", "brute"):
+        lg = int(ds.meta.t8_leaf)
+        rows = table("t8_tris", 128).reshape(-1, lg, 128)[:, :, :120]
+        words = used(rows.reshape(-1, 10)[:, :9]) * 10  # p0 e1 e2 id
+        if walk == "brute":
+            return words
+        meta = ds.t8_meta.cpu().numpy()
+        fld = 6 if int(ds.meta.t8_width) == 32 else 5
+        slots = int((meta & ((1 << fld) - 1)).sum())  # children with a box
+        return words + slots * 6 + meta.size
+    if walk in ("quad", "quadrow"):
+        recs = (table("bvh4_rows", 128)[:, :32] if walk == "quadrow"
+                else table("bvh4_recs_pk", 32))
+        axes = np.ascontiguousarray(recs[:, 28]).view(np.int32)
+        nkids = (axes >> 6) & 7
+        # a record: the boxes of its children, 4 metas and the axes word
+        words = int(np.where(nkids > 0, 5 + 6 * nkids, 0).sum())
+        if walk == "quad":
+            return words + tri_pack
+        return words + used(table("tri_rows", 16)[:, :9]) * 10  # + the id
+    if walk == "pair":
+        return used(table("bvh2_rows_pk", 16)[:, :15]) * 15 + tri_pack
+    return int(ds.meta.n_bvh_nodes) * 8 + tri_pack  # the skip-link walk
+
+
+def bound(ds, walk, counts, n_rays):
+    """(bound_ms, bound_by, visits, boxes, tests per live ray) of one
+    launch, from its per-ray counters."""
+    c = counts.to(torch.int64)
+    live = c[:, 0] > 0
+    tot = c.sum(dim=0).tolist()
+    n_live = max(int(live.sum()), 1)
+    nbytes = n_rays * RAY_BYTES + 4 * table_words(ds, walk)
+    ops = tot[1] * SLAB_OPS + tot[2] * MT_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            tot[0] / n_live, tot[1] / n_live, tot[2] / n_live)
+
+
 def phase_kernel(ds, settings) -> dict:
-    """Kernel vs plain in both modes; returns per-mode stats."""
+    """Every kernel vs its plain version in both modes; per (walk, mode)
+    stats at the path's shape."""
     from tpu_raytracing_torch.integrator.render import _pixel_grid
     from tpu_raytracing_torch.ops.camera_rays import generate_rays
     from tpu_raytracing_torch.ops.light_sampling import sample_light
     from tpu_raytracing_torch.ops.rng import SamplerConfig, make_stream
     from tpu_raytracing_torch.ops.traverse import intersect_scene
-    from tpu_raytracing_torch.ops.traverse_bvh8t import (
-        intersect_tris_bvh8t, intersect_tris_plain,
-    )
 
     dev = ds.device
     cfg = SamplerConfig.from_settings(settings.sampler, settings.seed)
@@ -151,71 +319,68 @@ def phase_kernel(ds, settings) -> dict:
     }
     stats = {}
     ok = True
-    for mode, args in batches.items():
-        tk, bk = intersect_tris_bvh8t(ds, *args)
-        tp, bp = intersect_tris_plain(ds, *args)
-        torch.cuda.synchronize()
-        tk, bk, tp, bp = (x.cpu().numpy() for x in (tk, bk, tp, bp))
-        n = bk.shape[0]
-        if mode == "closest_hit":
-            both = (bk >= 0) & (bp >= 0)
-            diff = bk != bp
-            ties = diff & both & (tk == tp)
-            wrong = int((diff & ~ties).sum())
-            err = float(np.max(np.abs(tk[both] - tp[both]))) if both.any() else 0.0
-            t_ok = bool(np.allclose(tk[both], tp[both], rtol=T_RTOL, atol=0.0))
-            mode_ok = wrong == 0 and ties.sum() < MAX_TIE_FRACTION * n and t_ok
-            print(f"# {mode}: {n} rays, {int((bk >= 0).sum())} hits, "
-                  f"{int(ties.sum())} equal-t ties, {wrong} other winner "
-                  f"mismatches, max |dt| {err:.3g} (rtol {T_RTOL}): "
-                  f"{'ok' if mode_ok else 'FAIL'}", flush=True)
-        else:
-            wrong = int(((bk >= 0) != (bp >= 0)).sum())
-            err = float(wrong > 0)
-            mode_ok = wrong == 0
-            print(f"# {mode}: {n} rays, {int((bk >= 0).sum())} occluded, "
-                  f"{wrong} hit-bit mismatches: {'ok' if mode_ok else 'FAIL'}",
+    for walk, (kernel, plain) in walks().items():
+        for mode, args in batches.items():
+            tk, bk = kernel(ds, *args)
+            tp, bp = plain(ds, *args)
+            torch.cuda.synchronize()
+            mode_ok, err, report = compare(walk, mode, tk, bk, tp, bp)
+            ok = ok and mode_ok
+            print(f"# {walk} {mode}: {report}: {'ok' if mode_ok else 'FAIL'}",
                   flush=True)
-        ok = ok and mode_ok
-        shape = path_shape[mode]
-        ms = time_ms(lambda: intersect_tris_bvh8t(ds, *shape), reps=20)
-        plain_ms = time_ms(lambda: intersect_tris_plain(ds, *shape), reps=1,
-                           warmup=False)
-        print(f"# {mode} at the path's shape ({shape[0].shape[0]} rays): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms", flush=True)
-        stats[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            shape = path_shape[mode]
+            n = shape[0].shape[0]
+            counts = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+            kernel(ds, *shape, counts=counts)
+            bound_ms, bound_by, visits, boxes, tests = bound(ds, walk, counts, n)
+            ms = time_ms(lambda: kernel(ds, *shape), reps=20)
+            plain_ms = time_ms(lambda: plain(ds, *shape), reps=1, warmup=False)
+            print(f"# {walk} {mode} at the path's shape ({n} rays): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.2f} ms; per live ray "
+                  f"{visits:.2f} visits, {boxes:.2f} box tests, {tests:.2f} "
+                  f"triangle tests; bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({bound_ms / ms * 100:.2f}% of the kernel time)",
+                  flush=True)
+            stats[walk, mode] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, visits_per_ray=visits,
+                box_tests_per_ray=boxes, tri_tests_per_ray=tests)
     if not ok:
-        raise AssertionError("kernel disagrees with its plain version")
+        raise AssertionError("a kernel disagrees with its plain version")
     return stats
+
+
+def launch_counts() -> dict:
+    from tpu_raytracing_torch.ops.traverse_kernels import WALKS
+
+    return {w: dict(fn.launches) for w, fn in WALKS.items()}
 
 
 def phase_full_frame(scene, settings, card: str) -> dict:
     from tpu_raytracing_torch.integrator.render import render
-    from tpu_raytracing_torch.ops.traverse_bvh8t import (
-        intersect_tris_bvh8t, reset_launch_counts,
-    )
+    from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
 
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = render(scene, settings, device="cuda")
+    out = render(scene, settings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(intersect_tris_bvh8t.launches)
+    launches = launch_counts()
     img = out.beauty
     mean = float(img.mean())
     print(f"# full frame {img.shape[1]}x{img.shape[0]}, "
           f"{settings.samples_per_pixel} spp, depth {settings.max_ray_depth}: "
           f"{wall:.3f} s wall (scene compile included), {out.rays_traced} "
           f"rays, {out.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; "
-          f"mean {mean:.6g}; launches {launches}", flush=True)
+          f"mean {mean:.6g}; launches {launches['bvh8t']}", flush=True)
     if not np.isfinite(img).all():
         raise AssertionError("non-finite beauty pixels")
     if not mean > 0.0:
         raise AssertionError("beauty mean is not positive")
-    if min(launches.values()) <= 0:
+    if min(launches["bvh8t"].values()) <= 0:
         raise AssertionError(f"a kernel mode never launched: {launches}")
-    return launches
+    return launches["bvh8t"]
 
 
 def phase_parity(scene, settings) -> None:
@@ -262,22 +427,115 @@ def phase_parity(scene, settings) -> None:
         raise AssertionError("slice parity outside its tolerance")
 
 
+def phase_switch(scene, settings, card: str) -> dict:
+    """The 1-spp frame through each walk of the kernel switch, against the
+    bvh8t frame of the same phase; returns walk -> launch counts."""
+    from tpu_raytracing_torch.device import compile_scene
+    from tpu_raytracing_torch.integrator.render import render
+    from tpu_raytracing_torch.ops.traverse_kernels import (
+        reset_launch_counts, t8_groups,
+    )
+
+    ds = compile_scene(scene)
+    s = dataclasses.replace(settings, samples_per_pixel=1)
+    runs = {
+        "bvh8t": {},
+        "brute": dict(TPU_RT_PALLAS_KERNEL="bvh8t",
+                      TPU_RT_BRUTE_GROUPS=str(t8_groups(ds))),
+        "quad": dict(TPU_RT_PALLAS_KERNEL="quad"),
+        "quadrow": dict(TPU_RT_PALLAS_KERNEL="quadrow"),
+        "pair": dict(TPU_RT_PALLAS_KERNEL="pair"),
+        "walk": dict(TPU_RT_PALLAS_KERNEL="walk"),
+    }
+    out, ok = {}, True
+    ref = None
+    for walk, env in runs.items():
+        with kernel_switch(**env):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = render(ds, s)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        img = res.beauty
+        mine = launches[walk]
+        others = {w: c for w, c in launches.items()
+                  if w != walk and any(c.values())}
+        run_ok = (min(mine.values()) > 0 and not others
+                  and bool(np.isfinite(img).all()) and float(img.mean()) > 0)
+        note = ""
+        if ref is None:
+            ref = res
+        else:
+            a, b = img, ref.beauty
+            close = float(np.all(np.isclose(a, b, rtol=SWITCH_PIXEL_RTOL, atol=0),
+                                 axis=-1).mean())
+            mean_rel = abs(float(a.mean()) - float(b.mean())) / float(b.mean())
+            rays_rel = abs(res.rays_traced - ref.rays_traced) / ref.rays_traced
+            run_ok = (run_ok and close >= SWITCH_MIN_CLOSE
+                      and mean_rel <= SWITCH_MEAN_RTOL
+                      and rays_rel <= SWITCH_RAYS_RTOL)
+            note = (f"; against bvh8t: {close * 100:.4f}% of pixels within "
+                    f"rtol {SWITCH_PIXEL_RTOL} (limit "
+                    f"{SWITCH_MIN_CLOSE * 100:.0f}%), mean rel {mean_rel:.2e} "
+                    f"(limit {SWITCH_MEAN_RTOL}), rays rel {rays_rel:.2e} "
+                    f"(limit {SWITCH_RAYS_RTOL})")
+        ok = ok and run_ok
+        print(f"# switch {walk} {env}: {img.shape[1]}x{img.shape[0]}, 1 spp, "
+              f"depth {s.max_ray_depth}: {wall:.3f} s wall, {res.rays_traced} "
+              f"rays, "
+              f"{res.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; mean "
+              f"{float(img.mean()):.6g}; launches {mine}, other walks "
+              f"{others}{note}: {'ok' if run_ok else 'FAIL'}", flush=True)
+        out[walk] = mine
+    if not ok:
+        raise AssertionError("a walk of the kernel switch failed its frame")
+    return out
+
+
+def kernel_entries(stats: dict, frame: dict, switch: dict) -> list:
+    """The {"kernels": [...]} entries. bvh8t's launches are the full
+    frame's (phase 4), the other walks' their switch frame's (phase 6, both
+    modes); times and bounds are at the path's shape of the entry's mode
+    (closest-hit for the walks, whose any-hit numbers ride along)."""
+    kernels = []
+    for kname, walk, modes, source, line in KERNELS:
+        main_mode = modes[0]
+        entry = dict(
+            name=kname, route="cuda", source=CSRC + source,
+            replaces=PALLAS + line,
+            launches=(frame[main_mode] if walk == "bvh8t"
+                      else sum(switch[walk].values())),
+            **stats[walk, main_mode], library_ms=None,
+            library="none: no PyTorch call computes a BVH walk",
+            mode=main_mode)
+        if len(modes) > 1:
+            entry["launches_by_mode"] = switch[walk]
+            entry["any_hit"] = stats[walk, "any_hit"]
+        kernels.append(entry)
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from tpu_raytracing.scene.test_scenes import get_test_scene
-    from tpu_raytracing.settings import AovFlags, RaytracerSettings
     from tpu_raytracing_torch import native_cuda
     from tpu_raytracing_torch.device import compile_scene
+    from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+    from tpu_raytracing_torch.settings import AovFlags, RaytracerSettings
 
+    for k in SWITCH:  # the switch's defaults: bvh8t, no brute kernel
+        os.environ.pop(k, None)
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"# card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; device 0: {name}", flush=True)
 
     path, secs, log = native_cuda.build()
-    ptxas = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = [ln for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
     print(f"# build: {path.name} in {secs:.2f} s", flush=True)
     for ln in ptxas:
         print(f"#   {ln.strip()}")
@@ -288,32 +546,31 @@ def main() -> int:
         samples_per_pixel=8, light_sample_count=1, max_ray_depth=8,
         outputs=AovFlags.BEAUTY,
     )
+    t0 = time.perf_counter()
+    ds = compile_scene(scene)
+    print(f"# scene compile (numpy BVH build included): "
+          f"{time.perf_counter() - t0:.3f} s on {card}", flush=True)
     failed = []
-    stats = launches = None
-    try:
-        stats = phase_kernel(compile_scene(scene, "cuda"), settings)
-    except Exception:
-        traceback.print_exc()
-        failed.append("kernel vs plain")
-    try:
-        launches = phase_full_frame(scene, settings, card)
-    except Exception:
-        traceback.print_exc()
-        failed.append("full frame")
-    try:
-        phase_parity(scene, settings)
-    except Exception:
-        traceback.print_exc()
-        failed.append("slice parity")
+    phases = (
+        ("kernel vs plain", lambda: phase_kernel(ds, settings)),
+        ("full frame", lambda: phase_full_frame(scene, settings, card)),
+        ("slice parity", lambda: phase_parity(scene, settings)),
+        ("kernel switch", lambda: phase_switch(scene, settings, card)),
+    )
+    results = {}
+    for phase, run in phases:
+        t0 = time.perf_counter()
+        try:
+            results[phase] = run()
+        except Exception:
+            traceback.print_exc()
+            failed.append(phase)
+        print(f"# phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
-
-    kernels = [
-        dict(name=f"bvh8t_walk<{mode}>", route="cuda", source=KERNEL_SOURCE,
-             replaces=KERNEL_REPLACES, launches=launches[mode], **stats[mode])
-        for mode in ("closest_hit", "any_hit")
-    ]
+    kernels = kernel_entries(results["kernel vs plain"],
+                             results["full frame"], results["kernel switch"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

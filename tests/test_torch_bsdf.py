@@ -23,12 +23,13 @@ from tpu_raytracing.device import compile_scene as jax_compile_scene
 from tpu_raytracing.ops.bsdf_dispatch import bsdf_eval as jax_bsdf_eval
 from tpu_raytracing.ops.bsdf_dispatch import bsdf_sample as jax_bsdf_sample
 from tpu_raytracing.ops.textures import EvalCtx as JEvalCtx
-from tpu_raytracing.scene.test_scenes import get_test_scene
+from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.ops import bsdf as TB
 from tpu_raytracing_torch.ops import rng as TR
 from tpu_raytracing_torch.ops.bsdf_dispatch import bsdf_eval, bsdf_sample
 from tpu_raytracing_torch.ops.textures import EvalCtx
+from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
 torch.set_num_threads(1)
 
@@ -131,7 +132,7 @@ def test_bsdf_sample_per_lane(lanes, kind):
 @pytest.mark.parametrize("name", ["coated_diffuse_bunny", "cube"])
 def test_get_bsdf_params(name):
     scene = get_test_scene(name).scene_func()
-    jds = jax_compile_scene(scene)
+    jds = jax_compile_scene(jax_test_scene(name).scene_func())
     tds = compile_scene(scene, "cpu")
     mats = np.arange(-1, max(1, len(scene.materials)) + 1, dtype=np.int32)
     mats = np.clip(mats, -1, max(0, len(scene.materials) - 1))

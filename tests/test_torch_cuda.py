@@ -1,8 +1,8 @@
-"""The CUDA bvh8t walk on the card, against its plain PyTorch version.
+"""The CUDA walks on the card, against their plain PyTorch versions.
 
-Marked `cuda`: the kernel has no CPU mode, so these tests skip without a
-card. This file imports no jax (the machine with the card has none), so
-it runs there on its own:
+Marked `cuda`: the kernels have no CPU mode, so these tests skip without a
+card. This file imports no jax and nothing of the JAX package (the machine
+with the card has no jax), so it runs there on its own:
 
     python3 -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -12,24 +12,36 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_raytracing.accel import build_bvh
-from tpu_raytracing.scene.test_scenes import get_test_scene
-from tpu_raytracing.settings import RaytracerSettings
+from tpu_raytracing_torch.accel import build_bvh
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.device import scene_buffers as SB
 from tpu_raytracing_torch.integrator.render import render
+from tpu_raytracing_torch.ops import traverse_kernels as TK
 from tpu_raytracing_torch.ops.traverse_bvh8t import (
-    intersect_tris_bvh8t, intersect_tris_plain, reset_launch_counts,
+    intersect_tris_bvh8t, intersect_tris_plain,
 )
+from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
+from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+from tpu_raytracing_torch.settings import RaytracerSettings
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
+
+# kernel wrapper and its plain version, per walk of the kernel switch
+WALKS = {
+    "brute": (TK.intersect_tris_brute, TK.intersect_tris_brute_plain),
+    "quad": (TK.intersect_tris_quad, TK.intersect_tris_quad_plain),
+    "quadrow": (TK.intersect_tris_quadrow,
+                lambda *a: TK.intersect_tris_quad_plain(*a, rowrec=True)),
+    "pair": (TK.intersect_tris_pair, intersect_tris_plain),
+    "walk": (TK.intersect_tris_skiplink, TK.intersect_tris_skiplink_plain),
+}
 
 
 @pytest.fixture(scope="module")
 def cuda_scene():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the bvh8t walk is a CUDA kernel")
+        pytest.skip("needs a CUDA device: the walks are CUDA kernels")
     scene = get_test_scene("coated_diffuse_bunny").scene_func()
     return compile_scene(scene, "cuda")
 
@@ -48,6 +60,26 @@ def _rays(ds, n, seed, early_exit):
     return [torch.from_numpy(x).to(ds.device) for x in (o, d, tmin, tmax, act)]
 
 
+def _assert_agree(tk, bk, tp, bp, act, early_exit, exact=False):
+    """Winners equal except equal-t ties between leaves (under 1e-4 of the
+    rays; none where `exact`), t within rtol 1e-5 (bit-equal where
+    `exact`), any-hit bits equal; inactive lanes (t_max, -1)."""
+    tk, bk, tp, bp = (x.cpu().numpy() for x in (tk, bk, tp, bp))
+    assert np.all(bk[~act] == -1)
+    if early_exit and not exact:
+        np.testing.assert_array_equal(bk >= 0, bp >= 0)
+        return
+    if exact:
+        np.testing.assert_array_equal(bk, bp)
+        np.testing.assert_array_equal(tk.view(np.int32), tp.view(np.int32))
+        return
+    diff = bk != bp
+    ties = diff & (bk >= 0) & (bp >= 0) & (tk == tp)
+    assert not (diff & ~ties).any()
+    assert ties.sum() <= 1e-4 * bk.shape[0]
+    np.testing.assert_allclose(tk[bk >= 0], tp[bk >= 0], rtol=1e-5)
+
+
 @pytest.mark.parametrize("early_exit", [False, True],
                          ids=["closest_hit", "any_hit"])
 def test_kernel_vs_plain(cuda_scene, early_exit):
@@ -60,17 +92,59 @@ def test_kernel_vs_plain(cuda_scene, early_exit):
     assert intersect_tris_bvh8t.launches[mode] == 1
     tp, bp = intersect_tris_plain(ds, *args, early_exit)
     torch.cuda.synchronize()
-    tk, bk, tp, bp = (x.cpu().numpy() for x in (tk, bk, tp, bp))
+    _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit)
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("walk", list(WALKS))
+def test_walk_kernel_vs_plain(cuda_scene, walk, early_exit):
+    """K3-K6 on 16,384 random rays; the brute kernel bit for bit."""
+    ds = cuda_scene
+    kernel, plain = WALKS[walk]
+    args = _rays(ds, 16384, 18, early_exit)
+    reset_launch_counts()
+    tk, bk = kernel(ds, *args, early_exit)
+    mode = "any_hit" if early_exit else "closest_hit"
+    assert kernel.launches[mode] == 1
+    tp, bp = plain(ds, *args, early_exit)
+    torch.cuda.synchronize()
+    _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit,
+                  exact=walk in ("brute", "quad", "quadrow"))
+
+
+@pytest.mark.parametrize("walk", ["bvh8t", *WALKS])
+def test_counts(cuda_scene, walk):
+    """The per-ray counters: work on live rays, none on inactive ones, and
+    the same (t, best) as a launch without them. Padding rows are not
+    counted, so the brute kernel counts one test per real triangle."""
+    ds = cuda_scene
+    kernel = intersect_tris_bvh8t if walk == "bvh8t" else WALKS[walk][0]
+    args = _rays(ds, 4096, 19, False)
+    counts = torch.zeros((4096, 3), dtype=torch.int32, device=ds.device)
+    t1, b1 = kernel(ds, *args, False, counts=counts)
+    t0, b0 = kernel(ds, *args, False)
+    torch.cuda.synchronize()
+    assert torch.equal(t0, t1) and torch.equal(b0, b1)
+    c = counts.cpu().numpy()
     act = args[4].cpu().numpy()
-    assert np.all(bk[~act] == -1)
-    if early_exit:
-        np.testing.assert_array_equal(bk >= 0, bp >= 0)
-        return
-    diff = bk != bp
-    ties = diff & (bk >= 0) & (bp >= 0) & (tk == tp)
-    assert not (diff & ~ties).any()
-    assert ties.sum() <= 1e-4 * n
-    np.testing.assert_allclose(tk[bk >= 0], tp[bk >= 0], rtol=1e-5)
+    assert np.all(c[~act] == 0)
+    assert np.all(c[act, 0] > 0) and np.all(c[act, 2] >= 0)
+    if walk == "brute":
+        assert np.all(c[act, 2] == ds.meta.n_tris)
+
+
+def test_stack_caps_raise(cuda_scene):
+    ds = cuda_scene
+    args = _rays(ds, 128, 20, False)
+    deep4 = dataclasses.replace(
+        ds, meta=dataclasses.replace(ds.meta, bvh4_stack=65))
+    deep2 = dataclasses.replace(
+        ds, meta=dataclasses.replace(ds.meta, bvh2_depth=65))
+    with pytest.raises(ValueError, match="exceeds"):
+        TK.intersect_tris_quad(deep4, *args)
+    with pytest.raises(ValueError, match="exceeds"):
+        TK.intersect_tris_pair(deep2, *args)
 
 
 @pytest.mark.parametrize("width", [8, 32])
@@ -108,7 +182,7 @@ def test_render_on_card_matches_cpu(cuda_scene):
     s = RaytracerSettings(samples_per_pixel=2, light_sample_count=1,
                           max_ray_depth=8)
     reset_launch_counts()
-    g = render(scene, s, "cuda")
+    g = render(scene, s)
     assert min(intersect_tris_bvh8t.launches.values()) > 0
     c = render(scene, s, "cpu")
     assert np.isfinite(g.beauty).all() and g.beauty.mean() > 0

@@ -1,0 +1,101 @@
+"""The port stands alone: it imports nothing of jax or of the JAX package,
+its copies of the host modules build what the JAX package builds, and its
+entry points run on the card unless the caller asks for the CPU.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_raytracing.accel import build_bvh as jax_build_bvh
+from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
+from tpu_raytracing_torch.accel import build_bvh
+from tpu_raytracing_torch.device import compile_scene
+from tpu_raytracing_torch.integrator.render import render
+from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+from tpu_raytracing_torch.settings import RaytracerSettings
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "tpu_raytracing_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "tpu_raytracing")
+
+
+def _imported_modules(path: Path):
+    """Absolute module names a file imports (relative imports stay inside
+    the port)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax_package(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _prim_boxes(tri_arrays):
+    p0, p1, p2 = tri_arrays
+    return (np.minimum(np.minimum(p0, p1), p2),
+            np.maximum(np.maximum(p0, p1), p2))
+
+
+def _scene_tris(scene):
+    """World-space vertex triples of every mesh of a builtin scene (both
+    packages' scenes hold the same meshes and transforms)."""
+    from tpu_raytracing_torch.device.scene_buffers import _triangle_soup
+
+    return _triangle_soup(scene)[0:3]
+
+
+@pytest.mark.parametrize("name", ["coated_diffuse_bunny", "cube"])
+def test_numpy_builder_equals_native(name):
+    """The port's numpy BVH builder against the JAX package's builder
+    (native C++ where it is built), array for array."""
+    lo, hi = _prim_boxes(_scene_tris(get_test_scene(name).scene_func()))
+    want = jax_build_bvh(lo, hi)
+    got = build_bvh(lo, hi)
+    for f in ("node_min", "node_max", "left_first", "count", "skip",
+              "prim_order"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+
+
+@pytest.mark.parametrize("name", ["coated_diffuse_bunny", "cube", "sphere"])
+def test_scene_copies_match(name):
+    """The port's builtin scenes hold the JAX package's meshes, materials
+    and lights."""
+    a = get_test_scene(name).scene_func()
+    b = jax_test_scene(name).scene_func()
+    assert [type(p).__name__ for p in a.primitives] == [
+        type(p).__name__ for p in b.primitives]
+    assert len(a.textures) == len(b.textures)
+    assert [type(m).__name__ for m in a.materials] == [
+        type(m).__name__ for m in b.materials]
+    assert [type(x).__name__ for x in a.lights] == [
+        type(x).__name__ for x in b.lights]
+    assert (a.camera.raster_width, a.camera.raster_height) == (
+        b.camera.raster_width, b.camera.raster_height)
+
+
+def test_entry_points_default_to_the_card():
+    """compile_scene and render without `device` run on cuda, so without a
+    card they raise; the CPU is used only when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    scene = get_test_scene("cube").scene_func()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compile_scene(scene)
+    settings = RaytracerSettings(samples_per_pixel=1, max_ray_depth=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render(scene, settings)
+    assert compile_scene(scene, "cpu").device.type == "cpu"

@@ -30,16 +30,16 @@ from tpu_raytracing.integrator.render import StaticSettings as JStatic
 from tpu_raytracing.integrator.render import _pixel_grid as jax_pixel_grid
 from tpu_raytracing.integrator.render import render_beauty_chunk as jax_chunk
 from tpu_raytracing.ops.rng import SamplerConfig as JSamplerConfig
-from tpu_raytracing.scene.test_scenes import get_test_scene
-from tpu_raytracing.settings import AovFlags, RaytracerSettings
+from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.integrator.render import (
     StaticSettings, _pixel_grid, render, render_beauty_chunk,
 )
 from tpu_raytracing_torch.ops.rng import SamplerConfig
-from tpu_raytracing_torch.ops.traverse_bvh8t import (
-    intersect_tris_bvh8t, reset_launch_counts,
-)
+from tpu_raytracing_torch.ops.traverse_bvh8t import intersect_tris_bvh8t
+from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
+from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+from tpu_raytracing_torch.settings import AovFlags, RaytracerSettings
 
 torch.set_num_threads(1)
 
@@ -57,7 +57,9 @@ def scene():
 
 @pytest.fixture(scope="module")
 def scenes(scene):
-    return jax_compile_scene(scene), compile_scene(scene, "cpu")
+    return (jax_compile_scene(jax_test_scene("coated_diffuse_bunny")
+                              .scene_func()),
+            compile_scene(scene, "cpu"))
 
 
 def _both(scenes, start):
@@ -130,16 +132,23 @@ def test_sample_light_matches_jax():
     """Point and direction lights, per lane (rtol 1e-6: a few f32 ops)."""
     import tpu_raytracing.ops.light_sampling as JL
     import tpu_raytracing.ops.rng as JR
-    from tpu_raytracing.lights import DirectionLight, PointLight
+    import tpu_raytracing.lights as JLights
+    import tpu_raytracing_torch.lights as TLights
     from tpu_raytracing_torch.ops import light_sampling as TL
     from tpu_raytracing_torch.ops import rng as TR
 
-    scene = get_test_scene("cube").scene_func()
-    scene.lights.append(PointLight(np.array([0.5, 2.0, -2.0], np.float32),
-                                   np.array([10.0, 8.0, 6.0], np.float32)))
-    scene.lights.append(DirectionLight(np.array([0.3, -1.0, -0.2], np.float32),
-                                       np.array([2.0, 2.0, 1.5], np.float32)))
-    jds, tds = jax_compile_scene(scene), compile_scene(scene, "cpu")
+    def lit_cube(get_scene, lights):
+        scene = get_scene("cube").scene_func()
+        scene.lights.append(lights.PointLight(
+            np.array([0.5, 2.0, -2.0], np.float32),
+            np.array([10.0, 8.0, 6.0], np.float32)))
+        scene.lights.append(lights.DirectionLight(
+            np.array([0.3, -1.0, -0.2], np.float32),
+            np.array([2.0, 2.0, 1.5], np.float32)))
+        return scene
+
+    jds = jax_compile_scene(lit_cube(jax_test_scene, JLights))
+    tds = compile_scene(lit_cube(get_test_scene, TLights), "cpu")
     g = np.random.default_rng(9)
     pts = (g.normal(0, 1, (N_PIX, 3)) + [0, 0, -3]).astype(np.float32)
     cfg = TR.SamplerConfig("independent", seed=42)
@@ -167,22 +176,27 @@ def test_pixel_grid_matches_jax():
 
 
 def test_port_never_imports_jax():
-    """With jax made unimportable, the port imports and renders."""
+    """With jax and the JAX package made unimportable, the port imports,
+    compiles the bunny and renders on the CPU."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_raytracing'] = None\n"
         "import numpy as np\n"
         "import tpu_raytracing_torch.integrator.render as R\n"
         "import tpu_raytracing_torch.native_cuda\n"
-        "from tpu_raytracing.scene.test_scenes import get_test_scene\n"
-        "from tpu_raytracing.settings import RaytracerSettings\n"
+        "from tpu_raytracing_torch.device import compile_scene\n"
+        "from tpu_raytracing_torch.scene.test_scenes import get_test_scene\n"
+        "from tpu_raytracing_torch.settings import RaytracerSettings\n"
         "sc = get_test_scene('coated_diffuse_bunny').scene_func()\n"
+        "ds = compile_scene(sc, 'cpu')\n"
+        "assert ds.meta.n_tris == 28586\n"
         "sc.camera = sc.camera.with_resolution(4, 4)\n"
         "s = RaytracerSettings(samples_per_pixel=1, max_ray_depth=2)\n"
         "out = R.render(sc, s, 'cpu')\n"
         "assert np.isfinite(out.beauty).all()\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
-        "sys.modules.items() if v is not None)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'tpu_raytracing') for m, "
+        "v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -13,11 +13,14 @@ import tpu_raytracing.ops.rng as JR
 from tpu_raytracing.device import compile_scene as jax_compile_scene
 from tpu_raytracing.integrator.render import _pixel_grid as jax_pixel_grid
 from tpu_raytracing.ops.camera_rays import generate_rays as jax_generate_rays
-from tpu_raytracing.scene.test_scenes import get_test_scene
+from tpu_raytracing.scene.camera import Camera as JCamera
+from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.integrator.render import _pixel_grid
 from tpu_raytracing_torch.ops import rng as R
 from tpu_raytracing_torch.ops.camera_rays import generate_rays
+from tpu_raytracing_torch.scene.camera import Camera
+from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
 torch.set_num_threads(1)
 
@@ -114,9 +117,7 @@ def test_pixel_grid_identical(wh):
         np.testing.assert_array_equal(a, b)
 
 
-def _thin_lens_cube():
-    from tpu_raytracing.scene.camera import Camera
-
+def _thin_lens_cube(get_test_scene, Camera):
     scene = get_test_scene("cube").scene_func()
     scene.camera = Camera.lookat_camera_thin_lens_perspective(
         np.array([1.0, 0.75, -1.0]), np.array([0.0, 0.0, -3.0]),
@@ -128,9 +129,13 @@ def _thin_lens_cube():
 @pytest.mark.parametrize("name", ["coated_diffuse_bunny", "cube",
                                   "cube_orthographic", "cube_thin_lens"])
 def test_camera_rays(name):
-    scene = (_thin_lens_cube() if name == "cube_thin_lens"
-             else get_test_scene(name).scene_func())
-    jds = jax_compile_scene(scene)
+    if name == "cube_thin_lens":
+        jscene = _thin_lens_cube(jax_test_scene, JCamera)
+        scene = _thin_lens_cube(get_test_scene, Camera)
+    else:
+        jscene = jax_test_scene(name).scene_func()
+        scene = get_test_scene(name).scene_func()
+    jds = jax_compile_scene(jscene)
     tds = compile_scene(scene, "cpu")
     px, py, _ = jax_pixel_grid(jds.meta.width, jds.meta.height)
     sel = slice(1000, 1000 + LANES)

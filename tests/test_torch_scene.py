@@ -1,8 +1,10 @@
 """The port's scene tables against the JAX package's, leaf by leaf.
 
-Every table the port builds must be byte-identical to the JAX leaf of the
-same name (the bvh8t node blocks hold NaN in empty slots, so all tables
-are compared as raw bytes).
+Each package compiles its own copy of the scene (the port has its own
+scene, geometry and BVH builder modules). Every table the port builds must
+be byte-identical to the JAX leaf of the same name, the traversal layouts
+of every walk the kernel switch selects included (the bvh8t node blocks
+hold NaN in empty slots, so all tables are compared as raw bytes).
 """
 import dataclasses
 
@@ -11,17 +13,18 @@ import pytest
 import torch
 
 from tpu_raytracing.device import compile_scene as jax_compile_scene
-from tpu_raytracing.scene.test_scenes import get_test_scene
+from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
 from tpu_raytracing_torch.device import compile_scene, from_jax_leaves
 from tpu_raytracing_torch.device.scene_buffers import LEAF_NAMES, SceneMeta
+from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module", params=["coated_diffuse_bunny", "cube"])
 def both(request):
-    scene = get_test_scene(request.param).scene_func()
-    return jax_compile_scene(scene), compile_scene(scene, "cpu")
+    return (jax_compile_scene(jax_test_scene(request.param).scene_func()),
+            compile_scene(get_test_scene(request.param).scene_func(), "cpu"))
 
 
 def _jax_leaves(jds):
@@ -61,7 +64,8 @@ def test_from_jax_leaves_same_scene(both):
 
 
 def test_bunny_shapes():
-    """The bench scene's bvh8t tables at W=16, LG=16."""
+    """The bench scene's traversal tables: bvh8t at W=16, LG=16, and the
+    layouts of the other walks."""
     tds = compile_scene(get_test_scene("coated_diffuse_bunny").scene_func(),
                         "cpu")
     assert tuple(tds.t8_nodes.shape) == (736, 128)
@@ -69,6 +73,33 @@ def test_bunny_shapes():
     assert tuple(tds.t8_tris.shape) == (3408, 128)
     assert tds.meta.n_tris == 28586 and tds.meta.t8_stack == 6
     assert tds.meta.mat_kinds_present == (0, 5)
+    assert tuple(tds.bvh_nodes_pk.shape) == (1150, 128)
+    assert tuple(tds.tri_pack_pk.shape) == (3574, 128)
+    assert tuple(tds.bvh2_rows_pk.shape) == (1149, 128)
+    assert tuple(tds.bvh4_recs_pk.shape) == (1171, 128)
+    assert tuple(tds.bvh4_rows.shape) == (4688, 128)
+    assert tuple(tds.tri_rows.shape) == (9200, 128)
+    assert tds.meta.n_bvh_nodes == 18385 and tds.meta.bvh2_depth == 19
+    assert tds.meta.bvh4_stack == 33
+
+
+@pytest.mark.parametrize("table", ["t8_tris", "tri_rows"])
+def test_triangle_rows_pad_with_zeros(both, table):
+    """Every triangle stands in exactly one slot (p0, e1 or p1, e2 or p2,
+    id) of the bvh8t groups and of the quadrow leaf rows, and the slots
+    that pad them are zero in every word. The kernels' counters and
+    chip_smoke.py's bound count a slot as work iff its nine vertex words
+    are not all zero."""
+    _, tds = both
+    tab = getattr(tds, table).numpy()
+    if table == "t8_tris":  # (blocks x LG rows, 128): 12 groups of 10 lanes
+        slots = tab.reshape(-1, 128)[:, :120].reshape(-1, 10)
+    else:                   # (rows, 128): 8 slots of 16 lanes
+        slots = tab.reshape(-1, 16)
+    used = np.any(slots[:, :9] != 0, axis=1)
+    assert np.all(slots[~used] == 0)
+    ids = np.ascontiguousarray(slots[used, 9]).view(np.int32)
+    np.testing.assert_array_equal(np.sort(ids), np.arange(tds.meta.n_tris))
 
 
 @pytest.mark.parametrize("name", [
@@ -79,10 +110,9 @@ def test_bunny_shapes():
     "metal",                  # conductor BSDF
 ])
 def test_outside_slice_raises(name):
-    scene = get_test_scene(name).scene_func()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compile_scene(scene, "cpu")
-    jds = jax_compile_scene(scene)
+        compile_scene(get_test_scene(name).scene_func(), "cpu")
+    jds = jax_compile_scene(jax_test_scene(name).scene_func())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         from_jax_leaves(_jax_leaves(jds), dataclasses.asdict(jds.meta), "cpu")
 

@@ -18,23 +18,27 @@ import tpu_raytracing.device.scene_buffers as JSB
 import tpu_raytracing.ops.traverse as JT
 from tpu_raytracing.device import compile_scene as jax_compile_scene
 from tpu_raytracing.ops.traverse_pallas import intersect_tris_pallas
-from tpu_raytracing.scene.test_scenes import get_test_scene
+from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.device import scene_buffers as SB
 from tpu_raytracing_torch.ops.traverse import (
     hit_details, intersect_scene, occluded,
 )
 from tpu_raytracing_torch.ops.traverse_bvh8t import (
-    intersect_tris_bvh8t, intersect_tris_plain, reset_launch_counts,
+    intersect_tris_bvh8t, intersect_tris_plain,
 )
+from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
+from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
 def scenes():
-    scene = get_test_scene("coated_diffuse_bunny").scene_func()
-    return jax_compile_scene(scene), compile_scene(scene, "cpu")
+    return (jax_compile_scene(jax_test_scene("coated_diffuse_bunny")
+                              .scene_func()),
+            compile_scene(get_test_scene("coated_diffuse_bunny").scene_func(),
+                          "cpu"))
 
 
 def _rays(ds, n, seed):

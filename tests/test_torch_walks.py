@@ -1,0 +1,193 @@
+"""The walks behind the kernel switch: each plain version against the JAX
+package's Pallas kernel it stands for, and the switch itself.
+
+The Pallas kernels run in interpret mode on the CPU, selected with the
+JAX package's own switch (TPU_RT_PALLAS_KERNEL, TPU_RT_BRUTE_GROUPS), as
+tests/test_pallas_traverse.py selects them. Their CUDA counterparts
+(csrc/*.cu) are held against the same plain versions on the card, in
+tests/test_torch_cuda.py. Winners must match exactly except for equal-t
+ties between leaves; t agrees within rtol 1e-5 (XLA contracts multiply-
+adds); any-hit bits must be equal.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_raytracing.device import compile_scene as jax_compile_scene
+from tpu_raytracing.ops.traverse_pallas import intersect_tris_pallas
+from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
+from tpu_raytracing_torch.device import compile_scene
+from tpu_raytracing_torch.integrator.render import (
+    StaticSettings, _pixel_grid, render_beauty_chunk,
+)
+from tpu_raytracing_torch.ops import traverse_bvh8t as T8
+from tpu_raytracing_torch.ops import traverse_kernels as TK
+from tpu_raytracing_torch.ops.rng import SamplerConfig
+from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+from tpu_raytracing_torch.settings import RaytracerSettings
+
+torch.set_num_threads(1)
+
+# walk -> (scene, the JAX switch that selects its Pallas kernel)
+CASES = {
+    "brute": ("cube", {"TPU_RT_PALLAS_KERNEL": "bvh8t",
+                       "TPU_RT_BRUTE_GROUPS": "4096"}),
+    "quad": ("coated_diffuse_bunny", {"TPU_RT_PALLAS_KERNEL": "quad"}),
+    "quadrow": ("coated_diffuse_bunny", {"TPU_RT_PALLAS_KERNEL": "quadrow"}),
+    "pair": ("coated_diffuse_bunny", {"TPU_RT_PALLAS_KERNEL": "pair"}),
+    "walk": ("coated_diffuse_bunny", {"TPU_RT_PALLAS_KERNEL": "walk"}),
+}
+PLAINS = {
+    "brute": TK.intersect_tris_brute_plain,
+    "quad": TK.intersect_tris_quad_plain,
+    "quadrow": lambda *a: TK.intersect_tris_quad_plain(*a, rowrec=True),
+    "pair": T8.intersect_tris_plain,
+    "walk": TK.intersect_tris_skiplink_plain,
+}
+SWITCH = ("TPU_RT_PALLAS_KERNEL", "TPU_RT_BRUTE_GROUPS")
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return {name: (jax_compile_scene(jax_test_scene(name).scene_func()),
+                   compile_scene(get_test_scene(name).scene_func(), "cpu"))
+            for name in ("coated_diffuse_bunny", "cube")}
+
+
+def _set_switch(monkeypatch, env):
+    for k in SWITCH:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+
+def _query(ds, n, seed, early_exit):
+    """tests/test_pallas_traverse.py::_rays, t ranges and inactive lanes."""
+    rng = np.random.default_rng(seed)
+    c = ds.bounds_center.numpy()
+    r = float(ds.bounds_radius)
+    o = (c[None, :] + rng.normal(0, 0.15, (n, 3)) * r).astype(np.float32)
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = np.full(n, 10.0 if early_exit else np.inf, np.float32)
+    act = np.arange(n) % 7 != 3
+    return o, d, tmin, tmax, act
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("walk", list(CASES))
+def test_plain_vs_pallas_kernel(scenes, monkeypatch, walk, early_exit):
+    name, env = CASES[walk]
+    jds, tds = scenes[name]
+    _set_switch(monkeypatch, env)
+    n = 1024
+    o, d, tmin, tmax, act = _query(tds, n, 31, early_exit)
+    t_k, p_k = intersect_tris_pallas(
+        jds, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin),
+        jnp.asarray(tmax), jnp.asarray(act), early_exit=early_exit)
+    t_k, p_k = np.asarray(t_k), np.asarray(p_k)
+    tp, bp = PLAINS[walk](tds, *[torch.from_numpy(x)
+                                 for x in (o, d, tmin, tmax, act)], early_exit)
+    tp, bp = tp.numpy(), bp.numpy()
+    assert np.all(p_k[~act] == -1) and np.all(bp[~act] == -1)
+    assert np.all(tp[~act] == tmax[~act])
+    assert (bp >= 0).sum() > n // 4  # the rays hit the scene
+    if early_exit and walk != "brute":  # the brute kernel has no early exit
+        np.testing.assert_array_equal(bp >= 0, p_k >= 0)
+        return
+    diff = p_k != bp
+    ties = diff & (p_k >= 0) & (bp >= 0) & np.isclose(t_k, tp, rtol=1e-6,
+                                                      atol=0)
+    assert not (diff & ~ties).any(), np.nonzero(diff & ~ties)
+    assert ties.sum() <= 1
+    hit = (p_k >= 0) & (bp >= 0)
+    np.testing.assert_allclose(tp[hit], t_k[hit], rtol=1e-5)
+
+
+@pytest.mark.parametrize("env,walk", [
+    ({}, "bvh8t"),
+    ({"TPU_RT_PALLAS_KERNEL": "bvh8t"}, "bvh8t"),
+    ({"TPU_RT_BRUTE_GROUPS": "2556"}, "brute"),
+    ({"TPU_RT_BRUTE_GROUPS": "2555"}, "bvh8t"),
+    ({"TPU_RT_PALLAS_KERNEL": "quad"}, "quad"),
+    ({"TPU_RT_PALLAS_KERNEL": "quadrow"}, "quadrow"),
+    ({"TPU_RT_PALLAS_KERNEL": "pair"}, "pair"),
+    ({"TPU_RT_PALLAS_KERNEL": "walk"}, "walk"),
+    ({"TPU_RT_PALLAS_KERNEL": "skiplink"}, "walk"),
+], ids=["default", "bvh8t", "brute", "brute_too_few", "quad", "quadrow",
+        "pair", "walk", "any_other"])
+def test_switch_runs_that_plain_version(scenes, monkeypatch, env, walk):
+    """intersect_tris on CPU tensors runs the selected walk's plain
+    version (spied on), as the JAX rule selects it at call time (the
+    bunny has 2,556 groups), and launches no kernel."""
+    _, tds = scenes["coated_diffuse_bunny"]
+    _set_switch(monkeypatch, env)
+    assert TK.select_walk(tds) == walk
+    owner, attr = {
+        "bvh8t": (T8, "intersect_tris_plain"),
+        "brute": (TK, "intersect_tris_brute_plain"),
+        "quad": (TK, "intersect_tris_quad_plain"),
+        "quadrow": (TK, "intersect_tris_quad_plain"),
+        "pair": (TK, "intersect_tris_plain"),
+        "walk": (TK, "intersect_tris_skiplink_plain"),
+    }[walk]
+    calls = []
+    real = getattr(owner, attr)
+
+    def spy(*a, **k):
+        calls.append(k.get("rowrec", a[7] if len(a) > 7 else False))
+        return real(*a, **k)
+
+    monkeypatch.setattr(owner, attr, spy)
+    TK.reset_launch_counts()
+    o, d, tmin, tmax, act = _query(tds, 64, 32, False)
+    t, b = TK.intersect_tris(tds, *[torch.from_numpy(x)
+                                    for x in (o, d, tmin, tmax, act)])
+    assert len(calls) == 1
+    assert calls[0] == (walk == "quadrow")
+    assert b.shape == (64,) and t.dtype == torch.float32
+    assert all(v == 0 for w in TK.WALKS.values() for v in w.launches.values())
+
+
+@pytest.fixture(scope="module")
+def chunk_bvh8t(scenes):
+    """256 bunny pixels (1 spp, depth 3) through the default walk."""
+    with pytest.MonkeyPatch.context() as mp:
+        _set_switch(mp, {})
+        return _chunk(scenes["coated_diffuse_bunny"][1])
+
+
+def _chunk(tds):
+    s = RaytracerSettings(samples_per_pixel=1, light_sample_count=1,
+                          max_ray_depth=3)
+    px, py, _ = _pixel_grid(tds.meta.width, tds.meta.height)
+    sel = slice(148480, 148480 + 256)  # mostly on the bunny
+    r, n = render_beauty_chunk(
+        tds, SamplerConfig.from_settings(s.sampler, s.seed),
+        StaticSettings.from_settings(s),
+        torch.from_numpy(px[sel].astype(np.int64)),
+        torch.from_numpy(py[sel].astype(np.int64)),
+        torch.ones(256, dtype=torch.bool))
+    return r.numpy(), int(n)
+
+
+@pytest.mark.parametrize("walk", list(CASES))
+def test_slice_under_each_walk(scenes, monkeypatch, chunk_bvh8t, walk):
+    """The slice through each walk equals the bvh8t slice: every walk
+    finds the same winners with bit-equal t, so rays_traced is equal and
+    pixels differ only where a path meets an equal-t tie between leaves
+    (none in this block: the images are equal)."""
+    _, tds = scenes["coated_diffuse_bunny"]
+    env = dict(CASES[walk][1])
+    if walk == "brute":
+        env["TPU_RT_BRUTE_GROUPS"] = str(TK.t8_groups(tds))
+    _set_switch(monkeypatch, env)
+    assert TK.select_walk(tds) == walk
+    want, n_want = chunk_bvh8t
+    got, n_got = _chunk(tds)
+    assert n_got == n_want > 0
+    assert np.isfinite(got).all() and got.mean() > 0
+    np.testing.assert_array_equal(got, want)

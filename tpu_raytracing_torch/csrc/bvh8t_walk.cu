@@ -28,29 +28,19 @@
 // packed per node, quantized) or a wavefront scheduler is later work.
 //
 // Numerics: build without fast math and with -fmad=false, so every divide is
-// IEEE and t matches the plain PyTorch walk. Min/max propagate NaN as
-// jnp.minimum does (fminf would drop it), so a ray lying in a slab plane with
-// a zero direction component misses as it does in the plain walk; empty
-// slots are masked by the slot counts besides.
+// IEEE and t matches the plain PyTorch walk. The slab test and
+// Moller-Trumbore are traverse_common.cuh's (NaN-propagating min/max);
+// empty slots are masked by the slot counts besides.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "traverse_common.cuh"
 
 namespace {
 
-constexpr int kStackCap = 64;  // traverse_pallas.py STACK_CAP; the wrapper checks t8_stack
+using tpu_rt::kRow;
+using tpu_rt::kStackCap;
+
 constexpr int kNodesPerBlock = 16;
 constexpr int kGroupsPerBlock = 12;
-constexpr int kRow = 128;
-constexpr float kBaryEps = 1e-5f;
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
 
 template <int W, bool EARLY_EXIT>
 __global__ void bvh8t_walk(const float* __restrict__ nodes,
@@ -63,6 +53,7 @@ __global__ void bvh8t_walk(const float* __restrict__ nodes,
                            const bool* __restrict__ active,
                            float* __restrict__ t_out,
                            int* __restrict__ best_out,
+                           int* __restrict__ counts,
                            int n_rays, int leaf_rows) {
   constexpr int FLD = (W == 32) ? 6 : 5;
   constexpr int FLD_MASK = (1 << FLD) - 1;
@@ -71,15 +62,14 @@ __global__ void bvh8t_walk(const float* __restrict__ nodes,
 
   float t_best = t_max_in[i];
   int best = -1;
+  int visits = 0, boxes = 0, tests = 0;
   if (!active[i]) {
     t_out[i] = t_best;
     best_out[i] = best;
+    tpu_rt::store_counts(counts, i, visits, boxes, tests);
     return;
   }
-  const float ox = origin[3 * i], oy = origin[3 * i + 1], oz = origin[3 * i + 2];
-  const float dx = direction[3 * i], dy = direction[3 * i + 1], dz = direction[3 * i + 2];
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  const float t_min = t_min_in[i];
+  const tpu_rt::Ray ray = tpu_rt::load_ray(origin, direction, t_min_in, i);
 
   int stack_base[kStackCap];
   uint32_t stack_mask[kStackCap];
@@ -104,6 +94,8 @@ __global__ void bvh8t_walk(const float* __restrict__ nodes,
     const int n_int = m0 & FLD_MASK;
     const int leaf_base = (int)((uint32_t)m1 >> FLD);
     const int n_leaf = m1 & FLD_MASK;
+    ++visits;
+    boxes += n_int + n_leaf;
 
     const float* blk = nodes + (size_t)(nid / kNodesPerBlock) * W * kRow +
                        (nid % kNodesPerBlock) * 8;
@@ -111,18 +103,8 @@ __global__ void bvh8t_walk(const float* __restrict__ nodes,
 #pragma unroll 4
     for (int s = 0; s < W; ++s) {
       if (s >= n_int && s < W - n_leaf) continue;  // empty slot: NaN box
-      const float* box = blk + s * kRow;
-      const float ax = (box[0] - ox) * ix, bx = (box[3] - ox) * ix;
-      const float ay = (box[1] - oy) * iy, by = (box[4] - oy) * iy;
-      const float az = (box[2] - oz) * iz, bz = (box[5] - oz) * iz;
-      float t0 = -INFINITY, t1 = INFINITY;
-      t0 = nan_max(t0, nan_min(ax, bx));
-      t1 = nan_min(t1, nan_max(ax, bx));
-      t0 = nan_max(t0, nan_min(ay, by));
-      t1 = nan_min(t1, nan_max(ay, by));
-      t0 = nan_max(t0, nan_min(az, bz));
-      t1 = nan_min(t1, nan_max(az, bz));
-      if (t0 <= t1 && t1 >= t_min && t0 <= t_best) hit |= 1u << s;
+      float t0;
+      if (tpu_rt::slab_hit(ray, blk + s * kRow, t_best, &t0)) hit |= 1u << s;
     }
     const uint32_t int_mask =
         n_int >= 32 ? 0xffffffffu : ((1u << n_int) - 1u);
@@ -144,25 +126,9 @@ __global__ void bvh8t_walk(const float* __restrict__ nodes,
       int idg = 0x7fffffff;
       for (int r = 0; r < leaf_rows; ++r) {
         const float* row = grp + r * kRow;
-        const float p0x = row[0], p0y = row[1], p0z = row[2];
-        const float e1x = row[3], e1y = row[4], e1z = row[5];
-        const float e2x = row[6], e2y = row[7], e2z = row[8];
-        const float pv0 = dy * e2z - dz * e2y;
-        const float pv1 = dz * e2x - dx * e2z;
-        const float pv2 = dx * e2y - dy * e2x;
-        const float den = pv0 * e1x + pv1 * e1y + pv2 * e1z;
-        const float sden = den == 0.0f ? 1.0f : den;
-        const float tv0 = ox - p0x, tv1 = oy - p0y, tv2 = oz - p0z;
-        const float u = (pv0 * tv0 + pv1 * tv1 + pv2 * tv2) / sden;
-        const float qv0 = tv1 * e1z - tv2 * e1y;
-        const float qv1 = tv2 * e1x - tv0 * e1z;
-        const float qv2 = tv0 * e1y - tv1 * e1x;
-        const float v = (qv0 * dx + qv1 * dy + qv2 * dz) / sden;
-        const float t = (qv0 * e2x + qv1 * e2y + qv2 * e2z) / sden;
-        const bool ok = den != 0.0f && u >= -kBaryEps && u <= 1.0f + kBaryEps &&
-                        v >= -kBaryEps && u + v <= 1.0f + kBaryEps &&
-                        t >= t_min && t <= t_best;
-        if (ok) {
+        float t;
+        if (tpu_rt::tri_hit(ray, row[0], row[1], row[2], row[3], row[4], row[5],
+                            row[6], row[7], row[8], t_best, &t)) {
           const int id = __float_as_int(row[9]);
           if (t < tg || (t == tg && id < idg)) {
             tg = t;
@@ -170,6 +136,7 @@ __global__ void bvh8t_walk(const float* __restrict__ nodes,
           }
         }
       }
+      if (counts != nullptr) tests += tpu_rt::t8_used_rows(grp, leaf_rows);
       if (tg < INFINITY) {
         t_best = tg;
         best = idg;
@@ -182,6 +149,7 @@ __global__ void bvh8t_walk(const float* __restrict__ nodes,
   }
   t_out[i] = t_best;
   best_out[i] = best;
+  tpu_rt::store_counts(counts, i, visits, boxes, tests);
 }
 
 template <int W>
@@ -189,15 +157,15 @@ cudaError_t launch(bool early_exit, dim3 grid, dim3 block, cudaStream_t stream,
                    const float* nodes, const float* tris, const int* meta,
                    const float* origin, const float* direction, const float* t_min,
                    const float* t_max, const bool* active, float* t_out,
-                   int* best_out, int n_rays, int leaf_rows) {
+                   int* best_out, int* counts, int n_rays, int leaf_rows) {
   if (early_exit) {
     bvh8t_walk<W, true><<<grid, block, 0, stream>>>(
         nodes, tris, meta, origin, direction, t_min, t_max, active, t_out,
-        best_out, n_rays, leaf_rows);
+        best_out, counts, n_rays, leaf_rows);
   } else {
     bvh8t_walk<W, false><<<grid, block, 0, stream>>>(
         nodes, tris, meta, origin, direction, t_min, t_max, active, t_out,
-        best_out, n_rays, leaf_rows);
+        best_out, counts, n_rays, leaf_rows);
   }
   return cudaGetLastError();
 }
@@ -208,9 +176,9 @@ extern "C" int tpu_rt_bvh8t_walk(const float* nodes, const float* tris,
                                  const int* meta, const float* origin,
                                  const float* direction, const float* t_min,
                                  const float* t_max, const bool* active,
-                                 float* t_out, int* best_out, int n_rays,
-                                 int width, int leaf_rows, int early_exit,
-                                 void* stream) {
+                                 float* t_out, int* best_out, int* counts,
+                                 int n_rays, int width, int leaf_rows,
+                                 int early_exit, void* stream) {
   if (n_rays <= 0) return 0;
   if (leaf_rows <= 0) return (int)cudaErrorInvalidValue;
   const dim3 block(128);
@@ -221,15 +189,15 @@ extern "C" int tpu_rt_bvh8t_walk(const float* nodes, const float* tris,
     case 8:
       return (int)launch<8>(ee, grid, block, s, nodes, tris, meta, origin,
                             direction, t_min, t_max, active, t_out, best_out,
-                            n_rays, leaf_rows);
+                            counts, n_rays, leaf_rows);
     case 16:
       return (int)launch<16>(ee, grid, block, s, nodes, tris, meta, origin,
                              direction, t_min, t_max, active, t_out, best_out,
-                             n_rays, leaf_rows);
+                             counts, n_rays, leaf_rows);
     case 32:
       return (int)launch<32>(ee, grid, block, s, nodes, tris, meta, origin,
                              direction, t_min, t_max, active, t_out, best_out,
-                             n_rays, leaf_rows);
+                             counts, n_rays, leaf_rows);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,11 +4,13 @@ Counterpart of tpu_raytracing/device/scene_buffers.py, restricted to the
 leaves the beauty path reads. The layout functions are the JAX package's
 numpy code, ported line for line so that every table is byte-identical to
 the JAX scene's leaf of the same name (tests/test_torch_scene.py): the
-bvh8t tables the CUDA walk reads, the child-pair rows the plain walk reads,
-the shading rows, and the material, texture, light and camera tables.
+traversal tables of every walk the JAX kernel switch selects (bvh8t,
+skip-link, child-pair, BVH4 and its row records), the shading rows,
+and the material, texture, light and camera tables.
 
-Only the host-side modules of tpu_raytracing are imported (scene, geometry,
-accel, materials, lights); this module never imports jax.
+The scene description it reads (scene, geometry, accel, materials,
+lights) is the port's own copy of the JAX package's host modules; the port
+imports nothing of tpu_raytracing and never imports jax.
 
 Scene features outside the slice raise NotImplementedError and name the
 ROADMAP.md item that brings them.
@@ -22,13 +24,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tpu_raytracing.accel import build_bvh
-from tpu_raytracing.geometry import Sphere, Transform, TriangleMesh
-from tpu_raytracing.geometry.matrix import apply_point as _np_apply_point
-from tpu_raytracing.lights import DirectionLight, PointLight
-from tpu_raytracing.materials import CoatedDiffuse, ConstantTexture, Diffuse
-from tpu_raytracing.scene import BasicPrimitive, Scene
-from tpu_raytracing.scene.camera import (
+from ..accel import build_bvh
+from ..geometry import Sphere, Transform, TriangleMesh
+from ..geometry.matrix import apply_point as _np_apply_point
+from ..lights import DirectionLight, PointLight
+from ..materials import CoatedDiffuse, ConstantTexture, Diffuse
+from ..scene import BasicPrimitive, Scene
+from ..scene.camera import (
     Orthographic, PinholePerspective, ThinLensPerspective,
 )
 
@@ -94,6 +96,10 @@ class SceneMeta:
     focal_distance: float
     root_meta: int
     bvh2_depth: int
+    n_bvh_nodes: int   # unpadded BVH node count = skip-link walk sentinel
+    root_meta4: int    # quad (BVH4) walk root meta
+    bvh4_stack: int    # quad walk stack bound
+    root_meta4r: int   # quadrow root meta (leaf numbering of tri_rows)
     t8_stack: int
     t8_width: int
     t8_leaf: int
@@ -106,6 +112,13 @@ class DeviceScene:
 
     bvh2_rows: torch.Tensor      # (M, 16) f32 child-pair rows (plain walk)
     tri_pack: torch.Tensor       # (T, 9) f32 p0 p1 p2 (plain walk)
+    bvh_nodes: torch.Tensor      # (N8, 8) f32 skip-link node records
+    bvh_nodes_pk: torch.Tensor   # (ceil(N/16), 128) f32, 16 node records/row
+    tri_pack_pk: torch.Tensor    # (ceil(T/8), 128) f32, 8 tri records/row
+    bvh2_rows_pk: torch.Tensor   # (M/8, 128) f32, 8 child-pair records/row
+    bvh4_recs_pk: torch.Tensor   # (K/4, 128) f32, 4 quad records/row
+    bvh4_rows: torch.Tensor      # (K8, 128) f32, one quad record/row
+    tri_rows: torch.Tensor       # (L, 128) f32, one leaf's tris/row + ids
     t8_nodes: torch.Tensor       # (Nb*W, 128) f32 bvh8t node blocks
     t8_meta: torch.Tensor        # (N8, 2) i32 child/leaf base + counts
     t8_tris: torch.Tensor        # (Gb*LG, 128) f32 bvh8t tri groups
@@ -208,6 +221,191 @@ def _child_pair_layout(bvh):
     maxd = int(depth.max()) + 1
     rows = _pad_rows(rows, _round_up(m, 8))
     return rows, 0, maxd
+
+
+def _bvh4_layout(bvh):
+    """Collapse the BVH2 into 4-wide records for the Pallas quad walk.
+
+    Each BVH4 record covers two BVH2 levels: its children are the 2-4
+    grandchildren (or leaf children) of a BVH2 internal node. Record = 32
+    f32: 4 child AABBs (24), 4 child metas (leaf -> (first<<3)|count,
+    internal -> bvh4_row<<3, -1 -> absent), packed order axes, pad.
+    Returns (records (K, 32) f32, root_meta4, stack_bound).
+    """
+    count = bvh.count
+    if bvh.prim_order.shape[0] == 0:
+        return np.zeros((4, 32), F), -1, 4
+    if count[0] > 0:  # single-leaf tree
+        root_meta = (int(bvh.left_first[0]) << 3) | int(count[0])
+        return np.zeros((4, 32), F), root_meta, 4
+
+    left_of = lambda i: i + 1  # noqa: E731
+    right_of = lambda i: int(bvh.skip[i + 1])  # noqa: E731
+
+    def split_axis(i):
+        l, r = left_of(i), right_of(i)
+        cl = (bvh.node_min[l] + bvh.node_max[l]) * 0.5
+        cr = (bvh.node_min[r] + bvh.node_max[r]) * 0.5
+        return int(np.argmax(np.abs(cr - cl)))
+
+    # BFS over BVH2 internals that become BVH4 records
+    row_of = {}
+    order = []
+
+    def visit(i):
+        row_of[i] = len(order)
+        order.append(i)
+
+    visit(0)
+    qi = 0
+    children_of = {}
+    while qi < len(order):
+        n = order[qi]
+        qi += 1
+        kids = []  # (bvh2 node id, is_leaf)
+        for c in (left_of(n), right_of(n)):
+            if count[c] > 0:
+                kids.append((c, True))
+            else:
+                kids.append((left_of(c), count[left_of(c)] > 0))
+                kids.append((right_of(c), count[right_of(c)] > 0))
+        children_of[n] = kids
+        for c, is_leaf in kids:
+            if not is_leaf and c not in row_of:
+                visit(c)
+
+    k = len(order)
+    recs = np.zeros((k, 32), F)
+    metas = np.full((k, 4), -1, np.int32)
+    axes = np.zeros(k, np.int32)
+    for r, n in enumerate(order):
+        kids = children_of[n]
+        # order axes: top split + per-half splits (identity when a half
+        # was not collapsed)
+        a_top = split_axis(n)
+        l, rr = left_of(n), right_of(n)
+        a_l = split_axis(l) if count[l] == 0 else a_top
+        a_r = split_axis(rr) if count[rr] == 0 else a_top
+        nleft = 2 if count[l] == 0 else 1
+        axes[r] = (
+            a_top | (a_l << 2) | (a_r << 4) | (len(kids) << 6) | (nleft << 9)
+        )
+        for j, (c, is_leaf) in enumerate(kids):
+            recs[r, j * 6 : j * 6 + 3] = bvh.node_min[c]
+            recs[r, j * 6 + 3 : j * 6 + 6] = bvh.node_max[c]
+            if is_leaf:
+                metas[r, j] = (int(bvh.left_first[c]) << 3) | int(count[c])
+            else:
+                metas[r, j] = row_of[c] << 3
+        # when the left/right half was NOT collapsed (child was a leaf),
+        # kids has fewer than 4 entries; j indexes stay compact and the
+        # in-kernel order logic uses the child count
+    recs[:, 24:28] = metas.view(F)
+    recs[:, 28] = axes.view(F)
+
+    # stack bound: ≤3 pushes per record level; record depth ≈ ceil(d2/2)
+    d2 = 1
+    depth = {0: 0}
+    for n in order:
+        for c, is_leaf in children_of[n]:
+            if not is_leaf:
+                depth[c] = depth[n] + 1
+                d2 = max(d2, depth[c] + 1)
+    bound = 3 * (d2 + 2)
+    pad = -k % 4
+    if pad:
+        recs = np.concatenate([recs, np.zeros((pad, 32), F)])
+    return recs, 0, bound
+
+
+def _rowrec_layout(recs: np.ndarray, tri_pack: np.ndarray, root_meta4: int):
+    """One quad record per 128-lane row + 8-aligned leaf triangle rows.
+
+    A dynamic-sublane row read replaces the per-visit lax.switch record
+    select (measured ~144 ns per switch by the round-2 in-situ probes —
+    the dominant share of the kernel's per-visit cost), and each leaf
+    phase reads ONE row and slices its tri slots statically instead of
+    issuing 4 more switches. Slot field 9 carries the original tri index
+    so winners keep global prim numbering.
+
+    Returns (quad_rows (K, 128) f32, tri_rows (L, 128) f32, root_meta4r).
+    """
+    k = recs.shape[0]
+    rows = np.zeros((k, 128), F)
+    rows[:, :32] = recs
+    metas = recs[:, 24:28].view(np.int32).copy()
+
+    tri_rows = []
+
+    def leaf_row(meta: int) -> int:
+        first, count = meta >> 3, meta & 7
+        row = np.zeros(128, F)
+        for s in range(count):
+            row[s * 16 : s * 16 + 9] = tri_pack[first + s, :9]
+            row[s * 16 + 9] = np.int32(first + s).view(F)
+        tri_rows.append(row)
+        return ((len(tri_rows) - 1) << 3) | count
+
+    if root_meta4 >= 0 and (root_meta4 & 7):
+        root_meta4 = leaf_row(root_meta4)
+    else:
+        for r in range(k):
+            for j in range(4):
+                m = int(metas[r, j])
+                if m >= 0 and (m & 7):
+                    metas[r, j] = leaf_row(m)
+        rows[:, 24:28] = metas.view(F)
+
+    if not tri_rows:
+        tri_rows.append(np.zeros(128, F))
+    tri_rows = np.stack(tri_rows).astype(F)
+    tri_rows = _pad_rows(tri_rows, _round_up(tri_rows.shape[0], 8))
+    rows = _pad_rows(rows, _round_up(rows.shape[0], 8))
+    return rows, tri_rows, int(root_meta4)
+
+# the JAX package's 128-lane packed tables (ops/traverse_pallas.py)
+NODE_F = 8       # f32 per skip-link node record: min3 max3 meta skip
+NODES_PER_ROW = 16
+TRI_F = 16       # f32 per packed triangle record (p0 p1 p2, 7 pad)
+TRIS_PER_ROW = 8
+
+
+def _pack_tables(bvh_nodes: np.ndarray, tri_pack: np.ndarray):
+    """traverse_pallas.py::pack_tables: (nodes_pk, tris_pk), 128-lane rows
+    of 16 node records / 8 triangle records."""
+    n = bvh_nodes.shape[0]
+    n_pad = -n % NODES_PER_ROW
+    nodes = np.concatenate(
+        [bvh_nodes.astype(F), np.zeros((n_pad, NODE_F), F)]
+    ) if n_pad else bvh_nodes.astype(F)
+    nodes_pk = nodes.reshape(-1, 128)
+
+    t = tri_pack.shape[0]
+    tris = np.zeros((t + (-t % TRIS_PER_ROW), TRI_F), F)
+    tris[:t, :9] = tri_pack.astype(F)
+    return nodes_pk, tris.reshape(-1, 128)
+
+
+def _skiplink_nodes(bvh) -> np.ndarray:
+    """(N8, 8) skip-link node records: min3, max3, bits((first<<3)|count),
+    bits(skip), padded to a multiple of 8 with empty boxes that skip to
+    the sentinel n_nodes."""
+    n_nodes = bvh.n_nodes
+    nd_pad = _round_up(n_nodes, 8)
+    bvh_min = _pad_rows(bvh.node_min, nd_pad, fill=1.0)
+    bvh_max = _pad_rows(bvh.node_max, nd_pad, fill=-1.0)
+    bvh_first = _pad_rows(bvh.left_first, nd_pad)
+    bvh_count = _pad_rows(bvh.count, nd_pad)
+    bvh_skip = _pad_rows(bvh.skip, nd_pad, fill=n_nodes)
+    meta1 = (bvh_first.astype(np.int64) << 3) | bvh_count.astype(np.int64)
+    return np.concatenate(
+        [
+            bvh_min, bvh_max,
+            meta1.astype(np.int32).view(F)[:, None],
+            bvh_skip.view(F)[:, None],
+        ],
+        axis=1,
+    ).astype(F)
 
 
 def _t8_fld(w: int) -> int:
@@ -341,7 +539,12 @@ def _accel_tables(tri_arrays):
             "against the chunked JAX result first",
         )
     tri_pack = np.concatenate(tri[0:3], axis=1).astype(F)
+    bvh_nodes = _skiplink_nodes(bvh)
+    bvh_nodes_pk, tri_pack_pk = _pack_tables(bvh_nodes, tri_pack)
     bvh2_rows, root_meta, bvh2_depth = _child_pair_layout(bvh)
+    bvh4_recs, root_meta4, bvh4_stack = _bvh4_layout(bvh)
+    bvh4_rows, tri_rows, root_meta4r = _rowrec_layout(
+        bvh4_recs, tri_pack, root_meta4)
     t8_nodes, t8_meta, t8_tris, t8_stack = _bvh8t_layout(bvh, tri_pack)
     if n_tris:
         root_min = prim_min.min(axis=0).astype(F)
@@ -352,6 +555,12 @@ def _accel_tables(tri_arrays):
     return dict(
         tri=tri, tri_pack=tri_pack, bvh2_rows=bvh2_rows,
         root_meta=int(root_meta), bvh2_depth=int(bvh2_depth),
+        bvh_nodes=bvh_nodes, bvh_nodes_pk=bvh_nodes_pk,
+        tri_pack_pk=tri_pack_pk, bvh2_rows_pk=bvh2_rows.reshape(-1, 8 * 16),
+        bvh4_recs_pk=bvh4_recs.reshape(-1, 4 * 32), bvh4_rows=bvh4_rows,
+        tri_rows=tri_rows, n_bvh_nodes=int(bvh.n_nodes),
+        root_meta4=int(root_meta4), bvh4_stack=int(bvh4_stack),
+        root_meta4r=int(root_meta4r),
         t8_nodes=t8_nodes, t8_meta=t8_meta, t8_tris=t8_tris,
         t8_stack=int(t8_stack), root_min=root_min, root_max=root_max,
         n_tris=int(n_tris),
@@ -553,8 +762,9 @@ def _minimum_differentials(cam) -> np.ndarray:
     return out
 
 
-def compile_scene(scene: Scene, device) -> DeviceScene:
-    """Build the slice's tables for `scene` on `device`."""
+def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
+    """Build the slice's tables for `scene` on `device` (the card unless
+    the caller asks for "cpu"; without a card, cuda raises)."""
     acc = _accel_tables(_triangle_soup(scene))
 
     lo = np.full(3, np.inf)
@@ -602,6 +812,10 @@ def compile_scene(scene: Scene, device) -> DeviceScene:
         focal_distance=float(focal),
         root_meta=acc["root_meta"],
         bvh2_depth=acc["bvh2_depth"],
+        n_bvh_nodes=acc["n_bvh_nodes"],
+        root_meta4=acc["root_meta4"],
+        bvh4_stack=acc["bvh4_stack"],
+        root_meta4r=acc["root_meta4r"],
         t8_stack=acc["t8_stack"],
         t8_width=T8_WIDTH,
         t8_leaf=T8_LEAF,
@@ -609,6 +823,9 @@ def compile_scene(scene: Scene, device) -> DeviceScene:
     )
     leaves = dict(
         bvh2_rows=acc["bvh2_rows"], tri_pack=acc["tri_pack"],
+        **{k: acc[k] for k in (
+            "bvh_nodes", "bvh_nodes_pk", "tri_pack_pk", "bvh2_rows_pk",
+            "bvh4_recs_pk", "bvh4_rows", "tri_rows")},
         t8_nodes=acc["t8_nodes"], t8_meta=acc["t8_meta"],
         t8_tris=acc["t8_tris"], tri_shade=_tri_shade_rows(acc["tri"]),
         mat_pack=mat_pack, mat_tex_rows=mat_tex_rows, tex_pack=tex_pack,

@@ -25,8 +25,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_raytracing.settings import AovFlags, RaytracerSettings, RenderOutput
-
 from ..device.scene_buffers import (
     DeviceScene, LIGHT_DIRECTION, LIGHT_POINT, compile_scene,
 )
@@ -38,6 +36,7 @@ from ..ops.linalg import dot, make_orthonormal_basis
 from ..ops.rng import SamplerConfig, make_stream
 from ..ops.textures import EvalCtx, eval_ctx_from_differentials
 from ..ops.traverse import hit_details, intersect_scene, occluded
+from ..settings import AovFlags, RaytracerSettings, RenderOutput
 
 log = logging.getLogger("tpu_raytracing_torch")
 
@@ -281,9 +280,10 @@ def _run_chunked(fn, px, py, device, chunk):
                        torch.from_numpy(act).to(device))
 
 
-def render(scene_or_device, settings: RaytracerSettings, device,
+def render(scene_or_device, settings: RaytracerSettings, device="cuda",
            chunk_pixels: int | None = None) -> RenderOutput:
-    """Full-frame beauty render on `device` ("cuda" or "cpu")."""
+    """Full-frame beauty render on `device`: the card unless the caller
+    asks for "cpu"; without a card, a cuda render raises."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(device='cuda'): no CUDA device")

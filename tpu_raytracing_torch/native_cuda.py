@@ -2,10 +2,12 @@
 
 Counterpart of tpu_raytracing/native.py for the device side. At first use,
 `load()` compiles every source under tpu_raytracing_torch/csrc/ with nvcc
-for sm_90a into tpu_raytracing_torch/_build/, named by a hash of the
-sources and flags (a changed source rebuilds), and loads it with ctypes.
-The library has a plain C interface, so the build does not include
-PyTorch's headers and takes seconds.
+for sm_90a into tpu_raytracing_torch/_build/: one nvcc per .cu file, all
+started together, then one link (the objects are removed whether or not
+the build succeeds). The library is named by a hash of the
+sources and flags (a changed source rebuilds) and loaded with ctypes. It
+has a plain C interface, so the build does not include PyTorch's headers
+and takes seconds.
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
@@ -25,10 +27,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # No fast math: IEEE divides in 1/d and Moller-Trumbore; -fmad=false keeps
-# t equal to the plain PyTorch walk's.
+# t equal to the plain PyTorch walks'.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 
@@ -63,32 +65,65 @@ def build() -> tuple[Path, float, str]:
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, seconds, res.stdout + res.stderr
+    srcs = [src for src in _sources() if src.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        jobs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for obj, src in zip(objs, srcs)]
+        logs, failed = [], []
+        for obj, proc in zip(objs, jobs):
+            log, _ = proc.communicate()
+            logs.append(log)
+            if proc.returncode != 0:
+                failed.append(f"{obj.name} ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        res = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *[str(obj) for obj in objs]],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return out, time.perf_counter() - t0, "".join(logs)
+
+
+# ctypes signatures: p = pointer (data_ptr or stream), i = int
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_RAYS = [_P] * 5 + [_P] * 3   # origin, direction, t_min, t_max, active;
+                              # t_out, best_out, counts (nullptr or (B, 3) i32)
+SIGNATURES = {
+    "tpu_rt_bvh8t_walk": [_P, _P, _P, *_RAYS, _I, _I, _I, _I, _P],
+    # nodes, tris, meta | n_rays, width, leaf_rows, early_exit | stream
+    "tpu_rt_t8_brute": [_P, *_RAYS, _I, _I, _I, _P],
+    # tris | n_rays, n_tri_blocks, leaf_rows | stream
+    "tpu_rt_skip_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],
+    # nodes_pk, tris_pk | n_rays, sentinel, n_tris, early_exit | stream
+    "tpu_rt_pair_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],
+    # rows_pk, tris_pk | n_rays, root_meta, n_tris, early_exit | stream
+    "tpu_rt_quad_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _I, _P],
+    # recs, tris | n_rays, root_meta, n_tris, rowrec, early_exit | stream
+}
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build if needed and load the library; argtypes set for every entry."""
+    """Build if needed and load the library; argtypes set for every entry.
+    Every entry returns cudaGetLastError() after its launch."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.tpu_rt_bvh8t_walk.restype = i
-    lib.tpu_rt_bvh8t_walk.argtypes = [
-        p, p, p,        # nodes, tris, meta
-        p, p, p, p, p,  # origin, direction, t_min, t_max, active
-        p, p,           # t_out, best_out
-        i, i, i, i,     # n_rays, width, leaf_rows, early_exit
-        p,              # stream
-    ]
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = argtypes
     return lib

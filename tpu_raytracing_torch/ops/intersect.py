@@ -26,8 +26,13 @@ def ray_aabb(origin, inv_dir, bb_min, bb_max):
 
 def ray_triangle(origin, direction, p0, p1, p2, t_min, t_max):
     """Moller-Trumbore. Returns (valid, t, u, v); invalid lanes have t=inf."""
-    e1 = p1 - p0
-    e2 = p2 - p0
+    return ray_triangle_edges(origin, direction, p0, p1 - p0, p2 - p0,
+                              t_min, t_max)
+
+
+def ray_triangle_edges(origin, direction, p0, e1, e2, t_min, t_max):
+    """Moller-Trumbore on (p0, e1 = p1 - p0, e2 = p2 - p0), in the op order
+    of the TPU kernels and of csrc/traverse_common.cuh::tri_hit."""
     pvec = cross(direction, e2)
     denom = dot(pvec, e1)
     safe_denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)

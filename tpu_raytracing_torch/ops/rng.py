@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_raytracing.sampling import Independent, Sampler, Stratified
+from ..sampling import Independent, Sampler, Stratified
 
 M32 = 0xFFFFFFFF
 _INV_2_24 = 1.0 / (1 << 24)

@@ -2,8 +2,9 @@
 
 Counterpart of tpu_raytracing/ops/traverse.py for the triangle path: one
 pass over the main accel (no spheres, instances, bounce sort or presorted
-lanes). The triangle query goes through ops/traverse_bvh8t.py, which runs
-the CUDA walk on the card and the plain stack walk on the CPU.
+lanes). The triangle query goes through ops/traverse_kernels.py, which
+picks the walk as the JAX kernel switch does and runs its CUDA kernel on
+the card and its plain version on the CPU.
 
 Winning primitive encoding: prim >= 0 -> triangle index (BVH order);
 prim < 0 -> miss.
@@ -17,7 +18,7 @@ import torch
 from ..device.scene_buffers import DeviceScene
 from .intersect import ray_triangle
 from .linalg import cross, normalize
-from .traverse_bvh8t import intersect_tris_bvh8t
+from .traverse_kernels import intersect_tris
 
 INF = float("inf")
 
@@ -47,7 +48,7 @@ def intersect_scene(ds: DeviceScene, origin, direction, t_min, t_max,
     if ds.meta.n_tris == 0:
         return (torch.full((B,), INF, device=origin.device),
                 torch.full((B,), -1, dtype=torch.int32, device=origin.device))
-    t_best, best = intersect_tris_bvh8t(
+    t_best, best = intersect_tris(
         ds, origin, direction, t_min.expand(B).contiguous(), t_max, active,
         early_exit,
     )

@@ -18,24 +18,12 @@ from __future__ import annotations
 
 import torch
 
-from tpu_raytracing.accel.bvh import MAX_LEAF_SIZE
-
-from .. import native_cuda
 from ..device.scene_buffers import DeviceScene
-from .intersect import ray_aabb, ray_triangle
-
-STACK_CAP = 64  # local-memory stack entries of the kernel (kStackCap)
-_DONE = -1
-
-
-def _pop(cur, sp, stack, rows, do):
-    """Lanes `rows` where `do` pop their stack (or finish when empty)."""
-    can = sp > 0
-    top = stack[rows, torch.clamp(sp - 1, min=0)]
-    cur = torch.where(do, torch.where(can, top, torch.full_like(top, _DONE)),
-                      cur)
-    sp = torch.where(do & can, sp - 1, sp)
-    return cur, sp
+from .intersect import ray_aabb
+from .walk_common import (
+    DONE, STACK_CAP, launch_ray_kernel, leaf_first_min, leaf_records, no_hits,
+    pop,
+)
 
 
 def intersect_tris_plain(ds: DeviceScene, origin, direction, t_min, t_max,
@@ -56,14 +44,13 @@ def intersect_tris_plain(ds: DeviceScene, origin, direction, t_min, t_max,
     rows_tab, tri_pack = ds.bvh2_rows, ds.tri_pack
     depth = max(int(ds.meta.bvh2_depth), 1)
     inv_dir = 1.0 / direction
-    cur = torch.where(active, ds.meta.root_meta, _DONE).to(torch.int32)
+    cur = torch.where(active, ds.meta.root_meta, DONE).to(torch.int32)
     sp = torch.zeros(B, dtype=torch.int64, device=dev)
     stack = torch.zeros((B, depth), dtype=torch.int32, device=dev)
-    offs = torch.arange(MAX_LEAF_SIZE, dtype=torch.int32, device=dev)
 
     def inner():
         while True:
-            lanes = torch.nonzero((cur != _DONE) & ((cur & 7) == 0))[:, 0]
+            lanes = torch.nonzero((cur != DONE) & ((cur & 7) == 0))[:, 0]
             if lanes.numel() == 0:
                 return
             c = cur[lanes]
@@ -86,31 +73,22 @@ def intersect_tris_plain(ds: DeviceScene, origin, direction, t_min, t_max,
             one = hit_l ^ hit_r
             nxt = torch.where(both, near, torch.where(hit_l, meta_l, meta_r))
             c = torch.where(both | one, nxt, c)
-            c, s = _pop(c, s, stack, lanes, ~hit_l & ~hit_r)
+            c, s = pop(c, s, stack, lanes, ~hit_l & ~hit_r)
             cur[lanes] = c
             sp[lanes] = s
 
-    while bool((cur != _DONE).any()):
+    while bool((cur != DONE).any()):
         inner()
-        lanes = torch.nonzero((cur != _DONE) & ((cur & 7) > 0))[:, 0]
+        lanes = torch.nonzero((cur != DONE) & ((cur & 7) > 0))[:, 0]
         if lanes.numel() == 0:
             continue
         c = cur[lanes]
         count = c & 7
         first = c >> 3
-        tid = torch.clamp(first[:, None] + offs[None, :], max=n_tris - 1)
-        pack = tri_pack[tid.long()]
         tb = t_best[lanes]
-        valid, t, _, _ = ray_triangle(
-            origin[lanes][:, None, :], direction[lanes][:, None, :],
-            pack[..., 0:3], pack[..., 3:6], pack[..., 6:9],
-            t_min[lanes][:, None], tb[:, None],
-        )
-        ok = valid & (offs[None, :] < count[:, None])
-        t = torch.where(ok, t, torch.full_like(t, float("inf")))
-        k = torch.argmin(t, dim=1)
-        t_leaf = torch.gather(t, 1, k[:, None])[:, 0]
-        leaf_hit = torch.isfinite(t_leaf)
+        t_leaf, k, leaf_hit = leaf_first_min(
+            origin[lanes], direction[lanes], t_min[lanes], tb,
+            leaf_records(tri_pack, first, n_tris), count)
         t_best[lanes] = torch.where(leaf_hit, t_leaf, tb)
         b = torch.where(leaf_hit, first + k.to(torch.int32), best[lanes])
         best[lanes] = b
@@ -118,29 +96,22 @@ def intersect_tris_plain(ds: DeviceScene, origin, direction, t_min, t_max,
         do = torch.ones_like(leaf_hit)
         if early_exit:
             fin = b >= 0
-            c = torch.where(fin, torch.full_like(c, _DONE), c)
+            c = torch.where(fin, torch.full_like(c, DONE), c)
             s = torch.where(fin, torch.zeros_like(s), s)
             do = ~fin
-        c, s = _pop(c, s, stack, lanes, do)
+        c, s = pop(c, s, stack, lanes, do)
         cur[lanes] = c
         sp[lanes] = s
     return t_best, best
 
 
-def _check(name, x, shape, dtype, device):
-    if x.shape != shape or x.dtype != dtype or x.device != device:
-        raise ValueError(
-            f"{name}: expected {tuple(shape)} {dtype} on {device}, got "
-            f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    return x.contiguous()
-
-
 def intersect_tris_bvh8t(ds: DeviceScene, origin, direction, t_min, t_max,
-                         active, early_exit: bool = False):
+                         active, early_exit: bool = False, counts=None):
     """Closest-hit (or any-hit with early_exit) over the scene's triangles.
 
     CPU tensors take the plain walk; CUDA tensors launch the kernel, and
-    each launch adds one to `intersect_tris_bvh8t.launches[mode]`."""
+    each launch adds one to `intersect_tris_bvh8t.launches[mode]`. `counts`
+    (card only) is launch_ray_kernel's."""
     dev = origin.device
     if dev.type == "cpu":
         return intersect_tris_plain(ds, origin, direction, t_min, t_max,
@@ -151,36 +122,18 @@ def intersect_tris_bvh8t(ds: DeviceScene, origin, direction, t_min, t_max,
         raise ValueError(
             f"bvh8t stack bound {ds.meta.t8_stack} exceeds {STACK_CAP}")
     B = origin.shape[0]
-    origin = _check("origin", origin, (B, 3), torch.float32, dev)
-    direction = _check("direction", direction, (B, 3), torch.float32, dev)
-    t_min = _check("t_min", t_min, (B,), torch.float32, dev)
-    t_max = _check("t_max", t_max, (B,), torch.float32, dev)
-    active = _check("active", active, (B,), torch.bool, dev)
-    nodes = _check("t8_nodes", ds.t8_nodes, ds.t8_nodes.shape,
-                   torch.float32, dev)
-    tris = _check("t8_tris", ds.t8_tris, ds.t8_tris.shape, torch.float32, dev)
-    meta = _check("t8_meta", ds.t8_meta, ds.t8_meta.shape, torch.int32, dev)
     if B == 0 or ds.meta.n_tris == 0:
-        return t_max.clone(), torch.full((B,), -1, dtype=torch.int32,
-                                         device=dev)
-    t = torch.empty(B, dtype=torch.float32, device=dev)
-    best = torch.empty(B, dtype=torch.int32, device=dev)
-    rc = native_cuda.load().tpu_rt_bvh8t_walk(
-        nodes.data_ptr(), tris.data_ptr(), meta.data_ptr(),
-        origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-        t_max.data_ptr(), active.data_ptr(), t.data_ptr(), best.data_ptr(),
-        B, int(ds.meta.t8_width), int(ds.meta.t8_leaf), int(early_exit),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"bvh8t walk launch failed: CUDA error {rc}")
+        return no_hits(t_max, B)
+    f32 = torch.float32
+    t, best = launch_ray_kernel(
+        "tpu_rt_bvh8t_walk",
+        [("t8_nodes", ds.t8_nodes, f32), ("t8_tris", ds.t8_tris, f32),
+         ("t8_meta", ds.t8_meta, torch.int32)],
+        origin, direction, t_min, t_max, active,
+        [int(ds.meta.t8_width), int(ds.meta.t8_leaf), int(early_exit)],
+        counts)
     intersect_tris_bvh8t.launches["any_hit" if early_exit else "closest_hit"] += 1
     return t, best
 
 
 intersect_tris_bvh8t.launches = {"closest_hit": 0, "any_hit": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in intersect_tris_bvh8t.launches:
-        intersect_tris_bvh8t.launches[k] = 0

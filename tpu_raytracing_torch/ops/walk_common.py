@@ -1,0 +1,109 @@
+"""What every triangle walk shares: the kernel launch and the plain leaf phase.
+
+- `launch_ray_kernel` checks a ray batch on the card and launches one C
+  entry of native_cuda (csrc/*.cu) on the current stream.
+- `no_hits` is the answer of an empty batch or scene.
+- `leaf_records`, `leaf_first_min` and `pop` are the pieces of the plain
+  PyTorch walks: a leaf's triangle records, its first-minimum hit, and a
+  per-lane stack pop.
+
+The walks themselves are ops/traverse_bvh8t.py (the default) and
+ops/traverse_kernels.py (the rest of the kernel switch).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import native_cuda
+from ..accel.bvh import MAX_LEAF_SIZE
+from .intersect import ray_triangle
+
+STACK_CAP = 64  # local-memory stack entries of the kernels (kStackCap)
+DONE = -1       # the node pointer of a lane whose walk has ended
+
+
+def pop(cur, sp, stack, rows, do):
+    """Lanes `rows` where `do` pop their stack (or finish when empty)."""
+    can = sp > 0
+    top = stack[rows, torch.clamp(sp - 1, min=0)]
+    cur = torch.where(do, torch.where(can, top, torch.full_like(top, DONE)),
+                      cur)
+    sp = torch.where(do & can, sp - 1, sp)
+    return cur, sp
+
+
+def leaf_records(tris, first, n_tris: int):
+    """(L, MAX_LEAF_SIZE, C) rows first .. first + MAX_LEAF_SIZE - 1 of a
+    triangle table, clamped to its last triangle."""
+    offs = torch.arange(MAX_LEAF_SIZE, dtype=torch.int64, device=first.device)
+    return tris[torch.clamp(first[:, None].long() + offs[None, :],
+                            max=n_tris - 1)]
+
+
+def leaf_first_min(origin, direction, t_min, t_best, pack, count):
+    """The leaf phase of every walk on (L,) lanes: Moller-Trumbore against
+    the (L, K, >= 9) vertex records `pack` (p0 p1 p2), of which the first
+    `count` are the leaf's, in [t_min, t_best]; the first minimum wins.
+    Returns (t_leaf, k, leaf_hit)."""
+    valid, t, _, _ = ray_triangle(
+        origin[:, None, :], direction[:, None, :], pack[..., 0:3],
+        pack[..., 3:6], pack[..., 6:9], t_min[:, None], t_best[:, None])
+    offs = torch.arange(pack.shape[1], device=origin.device)
+    t = torch.where(valid & (offs[None, :] < count[:, None]), t,
+                    torch.full_like(t, float("inf")))
+    k = torch.argmin(t, dim=1)
+    t_leaf = torch.gather(t, 1, k[:, None])[:, 0]
+    return t_leaf, k, torch.isfinite(t_leaf)
+
+
+def no_hits(t_max, B: int):
+    """(t_max, -1) for every ray: an empty batch or scene."""
+    return (t_max.to(torch.float32).expand(B).clone(),
+            torch.full((B,), -1, dtype=torch.int32, device=t_max.device))
+
+
+def _check(name, x, shape, dtype, device):
+    if x.shape != shape or x.dtype != dtype or x.device != device:
+        raise ValueError(
+            f"{name}: expected {tuple(shape)} {dtype} on {device}, got "
+            f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    return x.contiguous()
+
+
+def launch_ray_kernel(entry: str, tables, origin, direction, t_min, t_max,
+                      active, ints, counts=None):
+    """Check a ray batch on the card and launch the C entry `entry` of
+    native_cuda on the current stream; returns (t, best).
+
+    tables: (name, tensor, dtype) of the scene tables the kernel reads, in
+    its argument order; ints: the int arguments after n_rays; counts: None,
+    or a contiguous (B, 3) int32 tensor the kernel fills with node visits,
+    box tests and triangle tests per ray. A launch the card refuses
+    raises."""
+    dev = origin.device
+    B = origin.shape[0]
+    # held in locals until the launch is queued, so that no contiguous copy
+    # is freed (and its block reused by t or best) before the kernel runs
+    tabs = [_check(n, x, x.shape, dt, dev) for n, x, dt in tables]
+    rays = [
+        _check("origin", origin, (B, 3), torch.float32, dev),
+        _check("direction", direction, (B, 3), torch.float32, dev),
+        _check("t_min", t_min, (B,), torch.float32, dev),
+        _check("t_max", t_max, (B,), torch.float32, dev),
+        _check("active", active, (B,), torch.bool, dev),
+    ]
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    best = torch.empty(B, dtype=torch.int32, device=dev)
+    if counts is not None:
+        _check("counts", counts, (B, 3), torch.int32, dev)
+        if not counts.is_contiguous():
+            raise ValueError("counts: expected a contiguous tensor")
+    rc = getattr(native_cuda.load(), entry)(
+        *[x.data_ptr() for x in tabs], *[x.data_ptr() for x in rays],
+        t.data_ptr(), best.data_ptr(),
+        None if counts is None else counts.data_ptr(), B, *ints,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    return t, best
