@@ -23,7 +23,12 @@ Phases (any failure exits nonzero and prints no result):
 6. the kernel switch: the 500x500 frame at 1 spp, depth 8, rendered on cuda
    with bvh8t and then with each walk the JAX switch selects
    (TPU_RT_PALLAS_KERNEL, TPU_RT_BRUTE_GROUPS), its launch counts reset
-   just before and read just after, and held against the bvh8t frame.
+   just before and read just after, and held against the bvh8t frame;
+7. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
+   cost) and P4 (bf16 slab) at the scripts' counts, their launch counts
+   reset just before and read just after, then each configuration's plain
+   version at the same counts, timed once, held bit for bit against one
+   launch of its kernel on the same inputs (P3 also on small-id inputs).
 
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...},
 with the card's name and power limit on a line before them. Needs one CUDA
@@ -111,6 +116,15 @@ SWITCH_RAYS_RTOL = 1e-3
 SWITCH_MEAN_RTOL = 1e-3
 SWITCH_PIXEL_RTOL = 1e-5
 SWITCH_MIN_CLOSE = 0.99
+# the probes (phase 7): name, source, the Pallas probe it replaces. One SM
+# runs each, by design, so a bound's share of one SM is its card share
+# times the SMs.
+PROBE_KERNELS = (
+    ("probe_iter_cost", "probe_iter_cost.cu", "scripts/probe_iter_cost.py:155"),
+    ("probe_bf16_vpu", "probe_bf16_vpu.cu", "scripts/probe_bf16_vpu.py:56"),
+)
+SMS = 132
+FP32_LANES = 128  # fp32 lanes of an SM; a bf16x2 lane does two elements
 
 
 def card_line() -> str:
@@ -251,6 +265,14 @@ def table_words(ds, walk: str) -> int:
     return int(ds.meta.n_bvh_nodes) * 8 + tri_pack  # the skip-link walk
 
 
+def bound_entry(ops: float, nbytes: float, ops_per_s: float) -> tuple:
+    """(bound_ms, bound_by): the longer of bytes over the memory rate and
+    operations over `ops_per_s`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def bound(ds, walk, counts, n_rays):
     """(bound_ms, bound_by, visits, boxes, tests per live ray) of one
     launch, from its per-ray counters."""
@@ -260,9 +282,7 @@ def bound(ds, walk, counts, n_rays):
     n_live = max(int(live.sum()), 1)
     nbytes = n_rays * RAY_BYTES + 4 * table_words(ds, walk)
     ops = tot[1] * SLAB_OPS + tot[2] * MT_OPS
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+    return (*bound_entry(ops, nbytes, FP32_OPS_PER_S),
             tot[0] / n_live, tot[1] / n_live, tot[2] / n_live)
 
 
@@ -494,6 +514,138 @@ def phase_switch(scene, settings, card: str) -> dict:
     return out
 
 
+def max_clock_hz() -> float:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bits_compare(got, want) -> tuple[bool, float, str]:
+    """(bit-equal, max |got - want| where both are finite, report)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    differ = int((g.view(np.int32) != w.view(np.int32)).sum())
+    both = np.isfinite(g) & np.isfinite(w)
+    err = float(np.max(np.abs(g[both] - w[both]))) if both.any() else 0.0
+    return differ == 0, err, (
+        f"{g.size} elements, {int(np.isfinite(w).sum())} finite, {differ} "
+        f"bit differences, max |diff| {err:.3g}")
+
+
+def plain_run(fn) -> tuple:
+    """(output, milliseconds by CUDA events) of one call of a plain
+    version."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_probes(card: str) -> list:
+    """The probes' mains (launches counted), then at the same counts each
+    configuration's plain version (timed) against one kernel launch, bit for
+    bit, and the bounds; returns the two {"kernels": ...} entries."""
+    from tpu_raytracing_torch.probes import PROBES, reset_launch_counts
+    from tpu_raytracing_torch.probes import bf16_vpu as P4
+    from tpu_raytracing_torch.probes import iter_cost as P3
+
+    print(f"# probes on {card}", flush=True)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    p3, p4 = P3.main([]), P4.main([])
+    torch.cuda.synchronize()
+    launches = {name: dict(fn.launches) for name, fn in PROBES.items()}
+    ok = True
+    p3_configs = []
+    for config, res in zip(P3.CONFIGS, p3):
+        R, err, n = config[0], 0.0, res["iters"]
+        for small_ids in (False, True):
+            ins = P3.script_inputs("cuda", small_ids)
+            want, ms = plain_run(lambda: P3.iter_cost_plain(*ins, *config, n))
+            if not small_ids:
+                plain_ms = ms
+            equal, e, report = bits_compare(P3.iter_cost(*ins, *config, n),
+                                            want)
+            ok, err = ok and equal, max(err, e)
+            print(f"# probe_iter_cost {res['config']}, "
+                  f"{'small ids' if small_ids else 'script inputs'}, {n} "
+                  f"iterations: {report} (bit-equal required): "
+                  f"{'ok' if equal else 'FAIL'}", flush=True)
+        ops = res["iters_run"] * R * P3.LANE * P3.LG * MT_OPS
+        nbytes = 4 * (P3.NB * P3.LG + 6 * P3.RMAX + P3.RMAX + R) * P3.LANE
+        bound_ms, bound_by = bound_entry(ops, nbytes, FP32_OPS_PER_S)
+        p3_configs.append(dict(
+            res, launches=launches["probe_iter_cost"][res["config"]],
+            max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, share=bound_ms / res["ms"],
+            sm_share=bound_ms / res["ms"] * SMS))
+    # one convention for both types, an FMA counted as two operations: the
+    # datasheet's fp32 rate, and bf16x2 (no datasheet rate) derived as the
+    # fp32 lanes x 2 elements x 2 x the max clock
+    clock = max_clock_hz()
+    bf16_ops_per_s = SMS * FP32_LANES * 2 * 2 * clock
+    print(f"# probes: max SM clock {clock / 1e6:.0f} MHz; fp32 peak "
+          f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s (datasheet, an FMA counted as "
+          f"two); bf16x2 peak derived as {SMS} SMs x {FP32_LANES} lanes x 2 "
+          f"elements x 2 (an FMA) x the max clock = "
+          f"{bf16_ops_per_s / 1e12:.2f} Tops/s", flush=True)
+    p4_configs = []
+    for res in p4:
+        name = res["dtype"]
+        box, ray = P4.script_inputs("cuda")[name]
+        want, plain_ms = plain_run(
+            lambda: P4.bf16_vpu_plain(box, ray, res["iters"]))
+        equal, err, report = bits_compare(P4.bf16_vpu(box, ray, res["iters"]),
+                                          want)
+        ok = ok and equal
+        print(f"# probe_bf16_vpu {name}, {res['iters']} iterations: {report} "
+              f"(bit-equal required): {'ok' if equal else 'FAIL'}", flush=True)
+        n = box.numel()
+        ops = res["iters"] * n * P4.OPS_PER_ELEMENT
+        nbytes = n * (2 * box.element_size() + 4)
+        peak = bf16_ops_per_s if name == "bfloat16" else FP32_OPS_PER_S
+        bound_ms, bound_by = bound_entry(ops, nbytes, peak)
+        # the loop's SASS instructions issued by the block's warps, a clock
+        # at the max clock, against one SM's 4 schedulers
+        issue = (sum(res["sass"].values()) * P4.THREADS / 32 * res["iters"]
+                 / (res["ms"] * 1e-3 * clock) if res["sass"] else None)
+        if issue is not None:
+            print(f"# probe_bf16_vpu {name}: {issue:.3f} warp instructions a "
+                  f"clock at the max clock ({issue / 4 * 100:.1f}% of one "
+                  f"SM's 4 issue slots)", flush=True)
+        p4_configs.append(dict(
+            res, launches=launches["probe_bf16_vpu"][name], max_abs_err=err,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            peak_ops_per_s=peak, share=bound_ms / res["ms"],
+            sm_share=bound_ms / res["ms"] * SMS, issue_per_clock=issue))
+    entries = []
+    for (kname, source, replaces), configs, key in zip(
+            PROBE_KERNELS, (p3_configs, p4_configs), ("config", "dtype")):
+        for c in configs:
+            print(f"# {kname} {c[key]}: kernel {c['ms']:.4f} ms, plain "
+                  f"{c['plain_ms']:.2f} ms, bound {c['bound_ms']:.6f} ms by "
+                  f"{c['bound_by']} ({c['share'] * 100:.4f}% of the card, "
+                  f"{c['sm_share'] * 100:.2f}% of one SM), launches "
+                  f"{c['launches']}", flush=True)
+        main = configs[0]
+        entries.append(dict(
+            name=kname, route="cuda", source=CSRC + source, replaces=replaces,
+            launches=sum(c["launches"] for c in configs),
+            max_abs_err=max(c["max_abs_err"] for c in configs),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            library_ms=None,
+            library="none: no single PyTorch call computes the probe",
+            config=main[key], configs=configs))
+    if not ok:
+        raise AssertionError("a probe kernel differs from its plain version")
+    return entries
+
+
 def kernel_entries(stats: dict, frame: dict, switch: dict) -> list:
     """The {"kernels": [...]} entries. bvh8t's launches are the full
     frame's (phase 4), the other walks' their switch frame's (phase 6, both
@@ -556,6 +708,7 @@ def main() -> int:
         ("full frame", lambda: phase_full_frame(scene, settings, card)),
         ("slice parity", lambda: phase_parity(scene, settings)),
         ("kernel switch", lambda: phase_switch(scene, settings, card)),
+        ("probes", lambda: phase_probes(card)),
     )
     results = {}
     for phase, run in phases:
@@ -571,6 +724,7 @@ def main() -> int:
         return 1
     kernels = kernel_entries(results["kernel vs plain"],
                              results["full frame"], results["kernel switch"])
+    kernels += results["probes"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

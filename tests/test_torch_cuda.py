@@ -1,4 +1,5 @@
-"""The CUDA walks on the card, against their plain PyTorch versions.
+"""The CUDA walks and probes on the card, against their plain PyTorch
+versions.
 
 Marked `cuda`: the kernels have no CPU mode, so these tests skip without a
 card. This file imports no jax and nothing of the JAX package (the machine
@@ -21,6 +22,9 @@ from tpu_raytracing_torch.ops.traverse_bvh8t import (
     intersect_tris_bvh8t, intersect_tris_plain,
 )
 from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
+from tpu_raytracing_torch.probes import bf16_vpu as P4
+from tpu_raytracing_torch.probes import iter_cost as P3
+from tpu_raytracing_torch.probes import reset_launch_counts as reset_probes
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
@@ -188,3 +192,56 @@ def test_render_on_card_matches_cpu(cuda_scene):
     assert np.isfinite(g.beauty).all() and g.beauty.mean() > 0
     assert abs(g.rays_traced - c.rays_traced) <= 0.005 * c.rays_traced
     np.testing.assert_allclose(g.beauty.mean(), c.beauty.mean(), rtol=0.01)
+
+
+# the probes: the plain versions run op by op, so they are compared at a
+# small count, one of fori's compiled trip counts (chip_smoke.py compares
+# them at the scripts' counts)
+PROBE_ITERS = 256
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the probes are CUDA kernels")
+
+
+@pytest.mark.parametrize("small_ids", [False, True], ids=["script", "small_ids"])
+@pytest.mark.parametrize("config", P3.CONFIGS, ids=P3.label)
+def test_iter_cost_kernel_vs_plain(card, config, small_ids):
+    """P3 bit for bit, and the same number of iterations run."""
+    ins = P3.script_inputs("cuda", small_ids)
+    ck, cp = (torch.zeros(1, dtype=torch.int32, device="cuda")
+              for _ in range(2))
+    reset_probes()
+    got = P3.iter_cost(*ins, *config, PROBE_ITERS, counts=ck)
+    assert P3.iter_cost.launches[P3.label(config)] == 1
+    want = P3.iter_cost_plain(*ins, *config, PROBE_ITERS, counts=cp)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).any() and not torch.isfinite(want).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int(ck.item()) == int(cp.item())
+
+
+@pytest.mark.parametrize("dtype", list(P4.DTYPES))
+def test_bf16_vpu_kernel_vs_plain(card, dtype):
+    """P4 bit for bit in both types."""
+    box, ray = P4.script_inputs("cuda")[dtype]
+    reset_probes()
+    got = P4.bf16_vpu(box, ray, PROBE_ITERS)
+    assert P4.bf16_vpu.launches[dtype] == 1
+    want = P4.bf16_vpu_plain(box, ray, PROBE_ITERS)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_probes_reject_what_the_kernels_do_not_take(card):
+    ins = P3.script_inputs("cuda")
+    with pytest.raises(ValueError, match="compiled for"):
+        P3.iter_cost(*ins, *P3.CONFIGS[0], 512)
+    with pytest.raises(ValueError, match="expected"):
+        P3.iter_cost(ins[0][:64], *ins[1:], *P3.CONFIGS[0], 256)
+    box, ray = P4.script_inputs("cuda")["float32"]
+    with pytest.raises(ValueError, match="expected"):
+        P4.bf16_vpu(box[:8], ray[:8], 256)

@@ -3,6 +3,7 @@ its copies of the host modules build what the JAX package builds, and its
 entry points run on the card unless the caller asks for the CPU.
 """
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -22,7 +23,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_raytracing_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "tpu_raytracing")
+FORBIDDEN = ("jax", "tpu_raytracing", "scripts")
+CUDA_SOURCES = sorted((ROOT / "tpu_raytracing_torch" / "csrc").glob("*.cu*"))
 
 
 def _imported_modules(path: Path):
@@ -41,6 +43,23 @@ def test_port_file_imports_no_jax_package(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", CUDA_SOURCES, ids=[p.name for p in CUDA_SOURCES])
+def test_cuda_source_includes_only_the_toolkit_and_csrc(path):
+    """A kernel source includes the C++ and CUDA headers (<...>) and the
+    port's own csrc headers ("..."), nothing of the JAX package's C++
+    sources: no include names a directory, and a quoted one is a file of
+    csrc."""
+    incs = re.findall(r'^\s*#\s*include\s*([<"][^>"]+[>"])', path.read_text(),
+                      re.M)
+    assert incs, f"{path.name} includes nothing"
+    for inc in incs:
+        name = inc[1:-1]
+        assert "/" not in name and "\\" not in name and ".." not in name, inc
+        if inc.startswith('"'):
+            assert (path.parent / name).is_file(), inc
 
 
 def _prim_boxes(tri_arrays):

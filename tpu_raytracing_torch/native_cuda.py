@@ -9,7 +9,10 @@ sources and flags (a changed source rebuilds) and loaded with ctypes. It
 has a plain C interface, so the build does not include PyTorch's headers
 and takes seconds.
 
-There is no fallback: a missing nvcc or a failed build raises.
+There is no fallback: a missing nvcc or a failed build raises. What every
+kernel wrapper shares is here too: the device rule (`on_card`), the
+check of a tensor the kernel reads (`check_tensor`) and the launch of a C
+entry on the current stream (`launch`), which raises on a refused launch.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -113,6 +118,10 @@ SIGNATURES = {
     # rows_pk, tris_pk | n_rays, root_meta, n_tris, early_exit | stream
     "tpu_rt_quad_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _I, _P],
     # recs, tris | n_rays, root_meta, n_tris, rowrec, early_exit | stream
+    "tpu_rt_probe_iter_cost": [_P] * 6 + [_I] * 4 + [_P],
+    # tris, o, d, t_min, out, iters_run | R, chain, loop, iters | stream
+    "tpu_rt_probe_bf16_vpu": [_P] * 3 + [_I] * 2 + [_P],
+    # box, ray, out | bf16, iters | stream
 }
 
 
@@ -127,3 +136,29 @@ def load() -> ctypes.CDLL:
         fn.restype = _I
         fn.argtypes = argtypes
     return lib
+
+
+def on_card(name: str, x: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; other devices raise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def check_tensor(name: str, x: torch.Tensor, shape, dtype, device):
+    """x as a contiguous tensor, or raise if its shape, type or device is
+    not the kernel's."""
+    if tuple(x.shape) != tuple(shape) or x.dtype != dtype or x.device != device:
+        raise ValueError(
+            f"{name}: expected {tuple(shape)} {dtype} on {device}, got "
+            f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    return x.contiguous()
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the C entry `entry` with `args` and the current stream of
+    `device`; a launch the card refuses raises."""
+    rc = getattr(load(), entry)(*args,
+                                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")

@@ -42,6 +42,7 @@ import torch
 
 from ..accel.bvh import MAX_LEAF_SIZE
 from ..device.scene_buffers import DeviceScene
+from ..native_cuda import on_card
 from .intersect import ray_aabb, ray_triangle_edges
 from .traverse_bvh8t import intersect_tris_bvh8t, intersect_tris_plain
 from .walk_common import (
@@ -91,13 +92,6 @@ def intersect_tris(ds: DeviceScene, origin, direction, t_min, t_max, active,
 
 def _mode(early_exit: bool) -> str:
     return "any_hit" if early_exit else "closest_hit"
-
-
-def _on_card(name: str, origin) -> bool:
-    """True for CUDA tensors, False for CPU ones; other devices raise."""
-    if origin.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {origin.device}")
-    return origin.device.type == "cuda"
 
 
 # --------------------------------------------------------------------------
@@ -154,7 +148,7 @@ def intersect_tris_brute_plain(ds: DeviceScene, origin, direction, t_min,
 def intersect_tris_brute(ds: DeviceScene, origin, direction, t_min, t_max,
                          active, early_exit: bool = False, counts=None):
     """K3: the brute kernel on the card, its plain version on the CPU."""
-    if not _on_card("brute kernel", origin):
+    if not on_card("brute kernel", origin):
         return intersect_tris_brute_plain(ds, origin, direction, t_min, t_max,
                                           active, early_exit)
     B = origin.shape[0]
@@ -220,7 +214,7 @@ def intersect_tris_skiplink_plain(ds: DeviceScene, origin, direction, t_min,
 def intersect_tris_skiplink(ds: DeviceScene, origin, direction, t_min, t_max,
                             active, early_exit: bool = False, counts=None):
     """K6: the skip-link kernel on the card, its plain version on the CPU."""
-    if not _on_card("skip-link walk", origin):
+    if not on_card("skip-link walk", origin):
         return intersect_tris_skiplink_plain(ds, origin, direction, t_min,
                                              t_max, active, early_exit)
     B = origin.shape[0]
@@ -246,7 +240,7 @@ def intersect_tris_pair(ds: DeviceScene, origin, direction, t_min, t_max,
                         active, early_exit: bool = False, counts=None):
     """K5: the child-pair kernel on the card, intersect_tris_plain on the
     CPU."""
-    if not _on_card("pair walk", origin):
+    if not on_card("pair walk", origin):
         return intersect_tris_plain(ds, origin, direction, t_min, t_max,
                                     active, early_exit)
     if ds.meta.bvh2_depth > STACK_CAP:
@@ -394,7 +388,7 @@ def intersect_tris_quad_plain(ds: DeviceScene, origin, direction, t_min,
 
 def _quad(wrapper, rowrec: bool, ds: DeviceScene, origin, direction, t_min,
           t_max, active, early_exit: bool, counts):
-    if not _on_card("quad walk", origin):
+    if not on_card("quad walk", origin):
         return intersect_tris_quad_plain(ds, origin, direction, t_min, t_max,
                                          active, early_exit, rowrec)
     if ds.meta.bvh4_stack > STACK_CAP:

@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import native_cuda
 from ..accel.bvh import MAX_LEAF_SIZE
+from ..native_cuda import check_tensor, launch
 from .intersect import ray_triangle
 
 STACK_CAP = 64  # local-memory stack entries of the kernels (kStackCap)
@@ -62,14 +62,6 @@ def no_hits(t_max, B: int):
             torch.full((B,), -1, dtype=torch.int32, device=t_max.device))
 
 
-def _check(name, x, shape, dtype, device):
-    if x.shape != shape or x.dtype != dtype or x.device != device:
-        raise ValueError(
-            f"{name}: expected {tuple(shape)} {dtype} on {device}, got "
-            f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    return x.contiguous()
-
-
 def launch_ray_kernel(entry: str, tables, origin, direction, t_min, t_max,
                       active, ints, counts=None):
     """Check a ray batch on the card and launch the C entry `entry` of
@@ -84,26 +76,21 @@ def launch_ray_kernel(entry: str, tables, origin, direction, t_min, t_max,
     B = origin.shape[0]
     # held in locals until the launch is queued, so that no contiguous copy
     # is freed (and its block reused by t or best) before the kernel runs
-    tabs = [_check(n, x, x.shape, dt, dev) for n, x, dt in tables]
+    tabs = [check_tensor(n, x, x.shape, dt, dev) for n, x, dt in tables]
     rays = [
-        _check("origin", origin, (B, 3), torch.float32, dev),
-        _check("direction", direction, (B, 3), torch.float32, dev),
-        _check("t_min", t_min, (B,), torch.float32, dev),
-        _check("t_max", t_max, (B,), torch.float32, dev),
-        _check("active", active, (B,), torch.bool, dev),
+        check_tensor("origin", origin, (B, 3), torch.float32, dev),
+        check_tensor("direction", direction, (B, 3), torch.float32, dev),
+        check_tensor("t_min", t_min, (B,), torch.float32, dev),
+        check_tensor("t_max", t_max, (B,), torch.float32, dev),
+        check_tensor("active", active, (B,), torch.bool, dev),
     ]
     t = torch.empty(B, dtype=torch.float32, device=dev)
     best = torch.empty(B, dtype=torch.int32, device=dev)
     if counts is not None:
-        _check("counts", counts, (B, 3), torch.int32, dev)
+        check_tensor("counts", counts, (B, 3), torch.int32, dev)
         if not counts.is_contiguous():
             raise ValueError("counts: expected a contiguous tensor")
-    rc = getattr(native_cuda.load(), entry)(
-        *[x.data_ptr() for x in tabs], *[x.data_ptr() for x in rays],
-        t.data_ptr(), best.data_ptr(),
-        None if counts is None else counts.data_ptr(), B, *ints,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    launch(entry, dev, *[x.data_ptr() for x in tabs],
+           *[x.data_ptr() for x in rays], t.data_ptr(), best.data_ptr(),
+           None if counts is None else counts.data_ptr(), B, *ints)
     return t, best

@@ -1,0 +1,158 @@
+"""P4: does elementwise bf16 run at twice the float32 rate?
+
+Counterpart of scripts/probe_bf16_vpu.py (the Pallas kernel that
+`make(dtype)` builds, pallas_call at :56). ITERS iterations of a synthetic
+3-axis slab update on a (16, 128) block, in float32 or in bf16:
+
+    box = box + t0 * 1e-7
+    3 times: a = (box - o) * 0.5;  b = (box + o) * 0.5
+             t0 = max(t0, min(a, b));  t1 = min(t1, max(a, b))
+    t0 = t0 * 0.999
+
+from t0 = -1e3, t1 = 1e3, and the output is float32(t0) + float32(t1).
+That is 27 operations an element an iteration as written, but the
+function needs 11: the second and third axis passes compute the first
+pass's a and b again, and max(max(t0, m), m) = max(t0, m), min likewise,
+so they change nothing. The script divides its time by 14; the port's
+line divides by the 11 needed. Every operation rounds to the working
+type, and the constants are that type's (in bf16 0.999 rounds to 1.0);
+the last add is in float32, as the JAX package's interpret mode does it.
+
+`bf16_vpu` launches csrc/probe_bf16_vpu.cu for CUDA tensors (packed
+__nv_bfloat162 ops in bf16) and runs `bf16_vpu_plain` for CPU tensors.
+`python -m tpu_raytracing_torch.probes.bf16_vpu` times both types on the
+card (`--device cpu` runs the plain version).
+"""
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+import sys
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import native_cuda
+from ..native_cuda import check_tensor, launch, on_card
+from .common import best_ms, device_name, parse_args
+
+ITERS = 20000           # as in the script
+SHAPE = (16, 128)
+THREADS = 1024          # the kernel's one block: 2 elements a thread
+OPS_PER_ELEMENT = 11    # needed per iteration: mul, add, one axis pass
+                        # (add, sub, 2 mul, 2 min, 2 max), mul
+WRITTEN_OPS = 27        # as written: the axis pass 3 times
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def bf16_vpu_plain(box, ray, iters: int):
+    """The probe in plain PyTorch, in box's type: each op rounds to it."""
+    c = lambda x: torch.tensor(x, dtype=box.dtype, device=box.device)  # noqa: E731
+    eps, half, decay = c(1e-7), c(0.5), c(0.999)
+    t0 = torch.full_like(box, -1e3)
+    t1 = torch.full_like(box, 1e3)
+    for _ in range(iters):
+        box = box + t0 * eps
+        for _ax in range(3):
+            a = (box - ray) * half
+            b = (box + ray) * half
+            t0 = torch.maximum(t0, torch.minimum(a, b))
+            t1 = torch.minimum(t1, torch.maximum(a, b))
+        t0 = t0 * decay
+    return t0.float() + t1.float()
+
+
+def bf16_vpu(box, ray, iters: int = ITERS):
+    """P4: the kernel for CUDA tensors, bf16_vpu_plain for CPU tensors.
+    box and ray: (16, 128), both float32 or both bfloat16."""
+    if box.dtype not in DTYPES.values():
+        raise ValueError(f"probe_bf16_vpu: dtype {box.dtype} is neither "
+                         "float32 nor bfloat16")
+    if not on_card("probe_bf16_vpu", box):
+        return bf16_vpu_plain(box, ray, iters)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    dev = box.device
+    ins = [check_tensor("box", box, SHAPE, box.dtype, dev),
+           check_tensor("ray", ray, SHAPE, box.dtype, dev)]
+    out = torch.empty(SHAPE, dtype=torch.float32, device=dev)
+    bf16 = box.dtype == torch.bfloat16
+    launch("tpu_rt_probe_bf16_vpu", dev, *[x.data_ptr() for x in ins],
+           out.data_ptr(), int(bf16), iters)
+    bf16_vpu.launches["bfloat16" if bf16 else "float32"] += 1
+    return out
+
+
+bf16_vpu.launches = {name: 0 for name in DTYPES}
+
+
+def script_inputs(device="cpu"):
+    """{dtype name: (box, ray)}, drawn as the script draws them
+    (probe_bf16_vpu.py:66-69). The bf16 values are rounded through float32,
+    where the script rounds from float64: with seed 0 they are the same."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, dt in DTYPES.items():
+        out[name] = tuple(
+            torch.from_numpy(rng.standard_normal(SHAPE).astype(np.float32))
+            .to(device=device, dtype=dt) for _ in range(2))
+    return out
+
+
+def loop_instructions(dtype: str) -> Counter | None:
+    """Opcodes of the kernel's loop body in SASS, from cuobjdump on the
+    built library: the instructions from the target of the loop's backward
+    branch to the branch. None where cuobjdump or the loop is not found."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(native_cuda._nvcc()).with_name("cuobjdump"))
+    res = subprocess.run([tool, "-sass", str(native_cuda.library_path())],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        return None
+    tag = "14__nv_bfloat162" if dtype == "bfloat16" else "6float2"
+    for section in res.stdout.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if "probe_bf16_vpu" not in name or tag not in name:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            section)]
+        for addr, op in ins:
+            if not op.startswith("BRA"):
+                continue
+            line = section[section.find(f"/*{addr:04x}*/"):].split("\n", 1)[0]
+            target = re.search(r"BRA\s+(?:`\()?(?:0x)?([0-9a-f]+)", line)
+            if target and int(target.group(1), 16) < addr:
+                lo = int(target.group(1), 16)
+                return Counter(o for a, o in ins if lo <= a <= addr)
+    return None
+
+
+def main(argv=None) -> list[dict]:
+    """Time both types at --iters iterations (default 20,000) and print the
+    script's line for each, with the port's divisor of 11 operations."""
+    args = parse_args(argv, __doc__.splitlines()[0], ITERS)
+    dev = args.device
+    print(f"device={device_name(dev)}", flush=True)
+    results = []
+    for name, (box, ray) in script_inputs(dev).items():
+        ms = best_ms(lambda: bf16_vpu(box, ray, args.iters), dev)
+        ns_per_op = ms * 1e6 / max(args.iters, 1) / OPS_PER_ELEMENT
+        print(f"{name:>9}: {ms:8.3f} ms ({ns_per_op:.2f} ns per (16,128) op, "
+              f"{OPS_PER_ELEMENT} ops per iteration, {WRITTEN_OPS} written)",
+              flush=True)
+        sass = loop_instructions(name) if dev == "cuda" else None
+        if sass is not None:
+            print(f"{name:>9}: loop body in SASS, {sum(sass.values())} "
+                  f"instructions: {dict(sorted(sass.items()))}", flush=True)
+        results.append(dict(dtype=name, ms=ms, iters=args.iters,
+                            ns_per_op=ns_per_op,
+                            sass=None if sass is None else dict(sass)))
+    return results
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
