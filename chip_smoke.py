@@ -25,10 +25,14 @@ Phases (any failure exits nonzero and prints no result):
    (TPU_RT_PALLAS_KERNEL, TPU_RT_BRUTE_GROUPS), its launch counts reset
    just before and read just after, and held against the bvh8t frame;
 7. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
-   cost) and P4 (bf16 slab) at the scripts' counts, their launch counts
+   cost), P4 (bf16 slab), P2 (slab cost) and P1 (walk-visit ablation), at
+   the scripts' counts (P1 at 4,096 visits, not the script's 200,000: its
+   plain version takes about a millisecond a visit), their launch counts
    reset just before and read just after, then each configuration's plain
    version at the same counts, timed once, held bit for bit against one
-   launch of its kernel on the same inputs (P3 also on small-id inputs).
+   launch of its kernel on the same inputs (P3 also on small-id inputs;
+   P2 and P1 in their outputs, stats and every visit's drained mask, and
+   also on a second seeded input set whose drains vary).
 
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...},
 with the card's name and power limit on a line before them. Needs one CUDA
@@ -122,7 +126,34 @@ SWITCH_MIN_CLOSE = 0.99
 PROBE_KERNELS = (
     ("probe_iter_cost", "probe_iter_cost.cu", "scripts/probe_iter_cost.py:155"),
     ("probe_bf16_vpu", "probe_bf16_vpu.cu", "scripts/probe_bf16_vpu.py:56"),
+    ("probe_slab_cost", "probe_slab_cost.cu", "scripts/probe_slab_cost.py:210"),
+    ("probe_walk_cost", "probe_walk_cost.cu", "scripts/probe_walk_cost.py:240"),
 )
+# the configuration whose numbers head each probe's entry: the first, but
+# P2's visitk slab replica and P1's level with every part of a visit
+PROBE_MAIN = {"probe_slab_cost": "cur", "probe_walk_cost": "cond50"}
+P1_ITERS = 4096        # P1's timed and checked count (the script: 200,000)
+P2_VARIED_ITERS = 1024  # the second input set's checked counts
+P1_VARIED_ITERS = 512
+# operations a visit: needed, and as the script writes them. P2: a slab
+# test is SLAB_OPS; cur/hoist test 16 slots x 512 rays, twice as written
+# (KN = 2, the same box); row0 16 x 128 tests plus 16 interval slabs of 42
+# (3 axes: 2 subtracts, 4 products, 6 min/max, 2 folds); mxu the float32
+# product, 2 x 16 x 128 x 128 needed (6 identical groups written); floor
+# 16 compares (the script's 16 x 128). P1 (P1_SLAB_OPS, P1_TRIP_OPS) as
+# written: 16 x 512 slab tests a visit, and 16 x 512 Moller-Trumbore tests a
+# leaf trip; needed: the slots below the visit's ni (the drain masks the
+# others out), and in a leaf trip the rays its gate lets through, as the
+# plain run counts them (walk_cost_plain's `work`).
+P2_OPS = {
+    "floor": (16, 16 * 128),
+    "cur": (16 * 512 * SLAB_OPS, 2 * 16 * 512 * SLAB_OPS),
+    "hoist": (16 * 512 * SLAB_OPS, 2 * 16 * 512 * SLAB_OPS),
+    "row0": (16 * 128 * SLAB_OPS + 16 * 42,) * 2,
+    "mxu": (2 * 16 * 128 * 128, 2 * 96 * 128 * 128),
+}
+P1_SLAB_OPS = 16 * 512 * SLAB_OPS
+P1_TRIP_OPS = 16 * 512 * MT_OPS
 SMS = 132
 FP32_LANES = 128  # fp32 lanes of an SM; a bf16x2 lane does two elements
 
@@ -549,15 +580,18 @@ def plain_run(fn) -> tuple:
 def phase_probes(card: str) -> list:
     """The probes' mains (launches counted), then at the same counts each
     configuration's plain version (timed) against one kernel launch, bit for
-    bit, and the bounds; returns the two {"kernels": ...} entries."""
+    bit, and the bounds; returns the four {"kernels": ...} entries."""
     from tpu_raytracing_torch.probes import PROBES, reset_launch_counts
     from tpu_raytracing_torch.probes import bf16_vpu as P4
     from tpu_raytracing_torch.probes import iter_cost as P3
+    from tpu_raytracing_torch.probes import slab_cost as P2
+    from tpu_raytracing_torch.probes import walk_cost as P1
 
     print(f"# probes on {card}", flush=True)
     reset_launch_counts()
     torch.cuda.synchronize()
     p3, p4 = P3.main([]), P4.main([])
+    p2, p1 = P2.main([]), P1.main(["--iters", str(P1_ITERS)])
     torch.cuda.synchronize()
     launches = {name: dict(fn.launches) for name, fn in PROBES.items()}
     ok = True
@@ -623,16 +657,21 @@ def phase_probes(card: str) -> list:
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             peak_ops_per_s=peak, share=bound_ms / res["ms"],
             sm_share=bound_ms / res["ms"] * SMS, issue_per_clock=issue))
+    eq2, varied2, p2_configs = check_p2(p2, launches["probe_slab_cost"])
+    eq1, varied1, p1_configs = check_p1(p1, launches["probe_walk_cost"])
+    ok = ok and eq2 and eq1
     entries = []
     for (kname, source, replaces), configs, key in zip(
-            PROBE_KERNELS, (p3_configs, p4_configs), ("config", "dtype")):
+            PROBE_KERNELS, (p3_configs, p4_configs, p2_configs, p1_configs),
+            ("config", "dtype", "variant", "level")):
         for c in configs:
             print(f"# {kname} {c[key]}: kernel {c['ms']:.4f} ms, plain "
                   f"{c['plain_ms']:.2f} ms, bound {c['bound_ms']:.6f} ms by "
                   f"{c['bound_by']} ({c['share'] * 100:.4f}% of the card, "
                   f"{c['sm_share'] * 100:.2f}% of one SM), launches "
                   f"{c['launches']}", flush=True)
-        main = configs[0]
+        main = next((c for c in configs if c[key] == PROBE_MAIN.get(kname)),
+                    configs[0])
         entries.append(dict(
             name=kname, route="cuda", source=CSRC + source, replaces=replaces,
             launches=sum(c["launches"] for c in configs),
@@ -643,7 +682,164 @@ def phase_probes(card: str) -> list:
             config=main[key], configs=configs))
     if not ok:
         raise AssertionError("a probe kernel differs from its plain version")
+    if not (varied2 and varied1):
+        raise AssertionError("a P2 or P1 input set does not show its slab: "
+                             "the drains do not vary, or the share of finite "
+                             "outputs is not what the level gives")
     return entries
+
+
+def check_probe_run(name, case, kernel, plain, n: int, label: str) -> tuple:
+    """Run a P2/P1 kernel and its plain version (timed once) at n visits
+    with a visits buffer each, and hold them bit for bit: output, stats
+    (visits run, the drains' fold) and every visit's mask_s. Returns (ok,
+    max |output difference| where both are finite, plain ms, the drains,
+    the plain output)."""
+    vk, vp = (torch.full((n,), -7, dtype=torch.int32, device="cuda")
+              for _ in range(2))
+    (want, sp), plain_ms = plain_run(lambda: plain(vp))
+    got, sk = kernel(vk)
+    torch.cuda.synchronize()
+    equal, err, report = bits_compare(got, want)
+    same_stats = torch.equal(sk, sp)
+    same_visits = torch.equal(vk, vp)
+    ok = equal and same_stats and same_visits
+    n_run = int(sp[0])
+    seq = vp[:n_run].cpu().tolist()
+    parities = sorted({m & 1 for m in seq})
+    print(f"# {name} {case}, {label}, {n} visits: {report}; stats "
+          f"{sk.tolist()} vs {sp.tolist()}; {n_run} visits run, "
+          f"{len(set(seq))} distinct masks, parities {parities}, visits "
+          f"{'equal' if same_visits else 'DIFFER'} (bit-equal required): "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok, err, plain_ms, seq, want
+
+
+def probe_bound(ops_needed, ops_written, nbytes, ms) -> dict:
+    """Bounds of one probe launch, needed and as written: fp32 operations
+    at 67 TFLOP/s or bytes at 3.35 TB/s, each with its card and one-SM
+    share of the kernel's time."""
+    bound_ms, bound_by = bound_entry(ops_needed, nbytes, FP32_OPS_PER_S)
+    written_ms, _ = bound_entry(ops_written, nbytes, FP32_OPS_PER_S)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                sm_share=bound_ms / ms * SMS, written_bound_ms=written_ms,
+                written_sm_share=written_ms / ms * SMS, ops=ops_needed,
+                ops_written=ops_written, bytes=nbytes)
+
+
+def sass_note(name, case, sass) -> int | None:
+    n = sum(sass.values()) if sass else None
+    print(f"# {name} {case}: visit loop in SASS, "
+          + (f"{n} instructions: {dict(sorted(sass.items()))}" if sass
+             else "not found"), flush=True)
+    return n
+
+
+def check_drain_probe(name, key, results, launches, kernel, plain, inputs,
+                      n_varied, assess) -> tuple:
+    """P2 or P1: each configuration at its timed count on the script's
+    inputs (the plain version, plain(inputs, case, n, visits, work),
+    timed, and filling `work` where it counts what the visits needed) and
+    on the varied inputs at n_varied, bit for bit; assess(res, seq, work,
+    outputs) -> (bounds, note, fields, the outputs are as the level gives).
+    Returns (every kernel equals its plain version, the varied drains vary
+    and the outputs are as expected, the configurations)."""
+    script, varied = inputs
+    equal, shown, configs = True, True, []
+    for res in results:
+        case, n, work = res[key], res["iters"], {}
+        good, err, plain_ms, seq, want = check_probe_run(
+            name, case, lambda b: kernel(*script, case, n, visits=b),
+            lambda b: plain(script, case, n, b, work), n, "script inputs")
+        good2, err2, _, seq2, want2 = check_probe_run(
+            name, case, lambda b: kernel(*varied, case, n_varied, visits=b),
+            lambda b: plain(varied, case, n_varied, b, {}), n_varied,
+            "varied inputs")
+        b, note, fields, outputs_ok = assess(res, seq, work, (want, want2))
+        equal = equal and good and good2
+        shown = shown and len(set(seq2)) > 1 and outputs_ok
+        print(f"# {name} {case}: {note}; bound needed {b['bound_ms']:.6f} ms "
+              f"by {b['bound_by']} ({b['ops']} operations, "
+              f"{b['sm_share'] * 100:.2f}% of one SM), as written "
+              f"{b['written_bound_ms']:.6f} ms ({b['ops_written']}, "
+              f"{b['written_sm_share'] * 100:.2f}% of one SM)", flush=True)
+        configs.append(dict(
+            res, **b, **fields, launches=launches[case],
+            max_abs_err=max(err, err2), plain_ms=plain_ms,
+            sass_instructions=sass_note(name, case, res["sass"])))
+    return equal, shown, configs
+
+
+def check_p2(results, launches) -> tuple:
+    """P2 through check_drain_probe; bounds from this run's visits."""
+    from tpu_raytracing_torch.probes import slab_cost as P2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def assess(res, seq, work, outputs):
+        v = res["variant"]
+        # bytes: the node words this run's visits read, each once (floor
+        # lo.x of 16 slots, mxu a node's whole 16-row block, else 16
+        # boxes), the rays it reads, the output
+        q, nids = 0, set()
+        for m in seq:
+            nids.add(q % P2.NODES)
+            q += 1 + (m & 1)
+        if v == "mxu":
+            node_words = len({nid // 16 for nid in nids}) * 16 * P2.LANE
+        else:
+            node_words = len(nids) * 16 * (1 if v == "floor" else 6)
+        ray_words = {"floor": 0, "mxu": 6 * 512}.get(v, 8 * 512)
+        nbytes = 4 * (node_words + ray_words + 512) + 8
+        need, written = P2_OPS[v]
+        b = probe_bound(len(seq) * need, len(seq) * written, nbytes,
+                        res["ms"])
+        return b, (f"{len(seq)} visits run, {res['ns_per_visit_run']:.1f} ns "
+                   f"each, {need} operations a visit needed, {written} "
+                   f"written"), {}, True
+
+    return check_drain_probe(
+        "probe_slab_cost", "variant", results, launches, P2.slab_cost,
+        lambda ins, v, n, visits, work: P2.slab_cost_plain(*ins, v, n,
+                                                           visits),
+        (P2.script_inputs("cuda"), P2.varied_inputs("cuda")),
+        P2_VARIED_ITERS, assess)
+
+
+def check_p1(results, launches) -> tuple:
+    """P1 through check_drain_probe; bounds from this run's visits and the
+    work its plain run counted."""
+    from tpu_raytracing_torch.probes import walk_cost as P1
+
+    def assess(res, seq, work, outputs):
+        trips = work["leaf_trips"]
+        fin = [float(torch.isfinite(w).float().mean()) for w in outputs]
+        leaves = res["level"] in ("inner50", "cond50")
+        # bytes, an upper bound that the operations bound exceeds 100-fold:
+        # every node's 16 boxes, meta from the smem level on, the triangle
+        # table where leaf trips run, the rays, the output
+        nbytes = 4 * (P1.NODES * 16 * 6 + (2048 if res["level"] != "slab"
+                                             else 0)
+                      + (P1.NODES * P1.LANE if trips else 0) + 7 * 512 + 512)
+        needed = (work["slab_tests"] * SLAB_OPS
+                  + work["leaf_tests"] * MT_OPS)
+        b = probe_bound(needed, len(seq) * P1_SLAB_OPS + trips * P1_TRIP_OPS,
+                        nbytes, res["ms"])
+        slots = work["slab_tests"] / max(len(seq), 1) / 512
+        rays = work["leaf_tests"] / max(trips, 1) / P1.LG
+        return b, (f"{len(seq)} visits, {slots:.3f} slots below ni a visit "
+                   f"(of 16), {trips} leaf trips with {rays:.1f} rays gated "
+                   f"on a trip (of 512), finite outputs {fin[0] * 100:.2f}% "
+                   f"/ {fin[1] * 100:.2f}% (script / varied inputs)"), dict(
+            leaf_trips=trips, slots_needed=slots, leaf_rays=rays), all(
+            (f > 0.0) == leaves for f in fin)
+
+    return check_drain_probe(
+        "probe_walk_cost", "level", results, launches, P1.walk_cost,
+        lambda ins, lv, n, visits, work: P1.walk_cost_plain(
+            *ins, lv, n, visits, work),
+        (P1.script_inputs("cuda"), P1.varied_inputs("cuda")),
+        P1_VARIED_ITERS, assess)
 
 
 def kernel_entries(stats: dict, frame: dict, switch: dict) -> list:

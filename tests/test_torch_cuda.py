@@ -25,6 +25,8 @@ from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
 from tpu_raytracing_torch.probes import bf16_vpu as P4
 from tpu_raytracing_torch.probes import iter_cost as P3
 from tpu_raytracing_torch.probes import reset_launch_counts as reset_probes
+from tpu_raytracing_torch.probes import slab_cost as P2
+from tpu_raytracing_torch.probes import walk_cost as P1
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
@@ -245,3 +247,72 @@ def test_probes_reject_what_the_kernels_do_not_take(card):
     box, ray = P4.script_inputs("cuda")["float32"]
     with pytest.raises(ValueError, match="expected"):
         P4.bf16_vpu(box[:8], ray[:8], 256)
+
+
+def _inputs(probe, kind):
+    return (probe.script_inputs if kind == "script" else probe.varied_inputs)(
+        "cuda")
+
+
+def _record_equal(run_kernel, run_plain):
+    """Kernel and plain version bit for bit: output, stats (visits run, the
+    drains' fold) and every visit's drained mask."""
+    vk, vp = (torch.full((PROBE_ITERS,), -7, dtype=torch.int32, device="cuda")
+              for _ in range(2))
+    got, sk = run_kernel(vk)
+    want, sp = run_plain(vp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(sk, sp) and torch.equal(vk, vp)
+    assert 0 < int(sp[0]) <= PROBE_ITERS
+    return want, vp[:int(sp[0])]
+
+
+@pytest.mark.parametrize("inputs", ["script", "varied"])
+@pytest.mark.parametrize("variant", P2.VARIANTS)
+def test_slab_cost_kernel_vs_plain(card, variant, inputs):
+    """P2 bit for bit, visit by visit."""
+    ins = _inputs(P2, inputs)
+    reset_probes()
+    _, seq = _record_equal(
+        lambda v: P2.slab_cost(*ins, variant, PROBE_ITERS, visits=v),
+        lambda v: P2.slab_cost_plain(*ins, variant, PROBE_ITERS, visits=v))
+    assert P2.slab_cost.launches[variant] == 1
+    if inputs == "varied":
+        assert len(set(seq.tolist())) > 1
+
+
+@pytest.mark.parametrize("inputs", ["script", "varied"])
+@pytest.mark.parametrize("level", P1.LEVELS)
+def test_walk_cost_kernel_vs_plain(card, level, inputs):
+    """P1 bit for bit, visit by visit; the leaf levels find hits."""
+    ins = _inputs(P1, inputs)
+    reset_probes()
+    want, seq = _record_equal(
+        lambda v: P1.walk_cost(*ins, level, PROBE_ITERS, visits=v),
+        lambda v: P1.walk_cost_plain(*ins, level, PROBE_ITERS, visits=v))
+    assert P1.walk_cost.launches[level] == 1
+    assert len(seq) == PROBE_ITERS and len(set(seq.tolist())) > 1
+    fin = torch.isfinite(want)
+    assert bool(fin.any()) == level.endswith("50")
+
+
+def test_slab_walk_reject_what_the_kernels_do_not_take(card):
+    ins = P2.script_inputs("cuda")
+    with pytest.raises(ValueError, match="expected"):
+        P2.slab_cost(ins[0][:512], *ins[1:], "cur", 8)
+    with pytest.raises(ValueError, match="variant"):
+        P2.slab_cost(*ins, "nope", 8)
+    with pytest.raises(ValueError, match="visits"):
+        P2.slab_cost(*ins, "cur", 8,
+                     visits=torch.zeros(4, dtype=torch.int32, device="cuda"))
+    shifted = torch.empty(1024 * 128 + 1, device="cuda")[1:].view(1024, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        P2.slab_cost(shifted, *ins[1:], "floor", 8)
+    ins1 = P1.script_inputs("cuda")
+    with pytest.raises(ValueError, match="expected"):  # tables of NB = 8
+        P1.walk_cost(ins1[0][:128], ins1[1][:128], *ins1[2:], "slab", 8)
+    with pytest.raises(ValueError, match="expected"):
+        P1.walk_cost(*ins1[:2], ins1[2].float(), *ins1[3:], "slab", 8)
+    with pytest.raises(ValueError, match="level"):
+        P1.walk_cost(*ins1, "inner99", 8)

@@ -38,68 +38,28 @@
 //
 // Numerics: no fast math and -fmad=false, so every operation rounds as the
 // plain PyTorch version's does; ids move as bits only (small ids are
-// denormal floats).
-
-#include <climits>
-#include <cmath>
+// denormal floats). The group body lives in probe_common.cuh, which P1's
+// leaf loop shares.
 
 #include <cuda_runtime.h>
 
+#include "probe_common.cuh"
+
 namespace {
 
-constexpr int kLane = 128;
-constexpr int kRows = 16;        // triangle rows of a block
+using probe::kLane;
+using probe::kRows;
 constexpr int kBlocks = 8;       // blocks of the table
-constexpr int kNoId = 1 << 30;   // the script's id of a row that did not win
 constexpr int kTableBytes = kBlocks * kRows * kLane * 4;
 
 enum Loop { kFori = 0, kDynFori = 1, kWhile = 2 };
 
 // One iteration for this thread's ray: (t_best, best) updated in place.
-__device__ __forceinline__ void group(const float* __restrict__ table, int q,
+__device__ __forceinline__ void group(const float* table, int q,
                                       const float o[3], const float d[3],
                                       float t_min, float& t_best, int& best) {
-  const float* tb = table + (q % kBlocks) * kRows * kLane;
-  const int* ib = reinterpret_cast<const int*>(tb);
-  const int s = (q % 12) * 10;
-  float t_sl[kRows];
-  float tg = INFINITY;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const float* row = tb + i * kLane;
-    float p0[3], e1[3], e2[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      p0[k] = row[(s + k) % kLane];
-      e1[k] = row[(s + 3 + k) % kLane];
-      e2[k] = row[(s + 6 + k) % kLane];
-    }
-    const float pv0 = d[1] * e2[2] - d[2] * e2[1];
-    const float pv1 = d[2] * e2[0] - d[0] * e2[2];
-    const float pv2 = d[0] * e2[1] - d[1] * e2[0];
-    const float den = pv0 * e1[0] + pv1 * e1[1] + pv2 * e1[2];
-    const float sden = den == 0.0f ? 1.0f : den;
-    const float tv0 = o[0] - p0[0], tv1 = o[1] - p0[1], tv2 = o[2] - p0[2];
-    const float u = (pv0 * tv0 + pv1 * tv1 + pv2 * tv2) / sden;
-    const float qv0 = tv1 * e1[2] - tv2 * e1[1];
-    const float qv1 = tv2 * e1[0] - tv0 * e1[2];
-    const float qv2 = tv0 * e1[1] - tv1 * e1[0];
-    const float v = (qv0 * d[0] + qv1 * d[1] + qv2 * d[2]) / sden;
-    const float t = (qv0 * e2[0] + qv1 * e2[1] + qv2 * e2[2]) / sden;
-    const bool ok = den != 0.0f && u >= -1e-5f && u <= 1.00001f &&
-                    v >= -1e-5f && u + v <= 1.00001f && t >= t_min &&
-                    t <= t_best;
-    t_sl[i] = ok ? t : INFINITY;
-    tg = fminf(tg, t_sl[i]);
-  }
-  int idw = INT_MAX;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-    idw = min(idw, t_sl[i] == tg ? ib[i * kLane + (s + 9) % kLane] : kNoId);
-  if (tg < INFINITY) {
-    t_best = tg;
-    best = idw;
-  }
+  probe::group(table + (q % kBlocks) * kRows * kLane, (q % 12) * 10, true, o,
+               d, t_min, t_best, best);
 }
 
 template <int R, bool CHAIN, int LOOP, int FIXED>

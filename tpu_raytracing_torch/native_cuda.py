@@ -122,6 +122,11 @@ SIGNATURES = {
     # tris, o, d, t_min, out, iters_run | R, chain, loop, iters | stream
     "tpu_rt_probe_bf16_vpu": [_P] * 3 + [_I] * 2 + [_P],
     # box, ray, out | bf16, iters | stream
+    "tpu_rt_probe_slab_cost": [_P] * 8 + [_I] * 2 + [_P],
+    # nodes, o, inv, t_min, act, out, visits, stats | variant, iters | stream
+    "tpu_rt_probe_walk_cost": [_P] * 9 + [_I] * 2 + [_P],
+    # nodes, tris, meta, o, d, t_min, out, visits, stats | level, iters |
+    # stream
 }
 
 

@@ -25,18 +25,14 @@ card (`--device cpu` runs the plain version).
 """
 from __future__ import annotations
 
-import re
-import shutil
-import subprocess
 import sys
 from collections import Counter
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from .. import native_cuda
 from ..native_cuda import check_tensor, launch, on_card
+from . import common
 from .common import best_ms, device_name, parse_args
 
 ITERS = 20000           # as in the script
@@ -103,32 +99,10 @@ def script_inputs(device="cpu"):
 
 
 def loop_instructions(dtype: str) -> Counter | None:
-    """Opcodes of the kernel's loop body in SASS, from cuobjdump on the
-    built library: the instructions from the target of the loop's backward
-    branch to the branch. None where cuobjdump or the loop is not found."""
-    tool = shutil.which("cuobjdump") or str(
-        Path(native_cuda._nvcc()).with_name("cuobjdump"))
-    res = subprocess.run([tool, "-sass", str(native_cuda.library_path())],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        return None
+    """Opcodes of the kernel's loop body in SASS for one type (cuobjdump on
+    the built library); None where it is not found."""
     tag = "14__nv_bfloat162" if dtype == "bfloat16" else "6float2"
-    for section in res.stdout.split("Function : ")[1:]:
-        name = section.split(None, 1)[0]
-        if "probe_bf16_vpu" not in name or tag not in name:
-            continue
-        ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
-            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-            section)]
-        for addr, op in ins:
-            if not op.startswith("BRA"):
-                continue
-            line = section[section.find(f"/*{addr:04x}*/"):].split("\n", 1)[0]
-            target = re.search(r"BRA\s+(?:`\()?(?:0x)?([0-9a-f]+)", line)
-            if target and int(target.group(1), 16) < addr:
-                lo = int(target.group(1), 16)
-                return Counter(o for a, o in ins if lo <= a <= addr)
-    return None
+    return common.loop_instructions(f"probe_bf16_vpuI{tag}E")
 
 
 def main(argv=None) -> list[dict]:

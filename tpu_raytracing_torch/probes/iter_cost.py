@@ -29,13 +29,10 @@ import numpy as np
 import torch
 
 from ..native_cuda import check_tensor, launch, on_card
-from .common import best_ms, device_name, parse_args
+from .common import LANE, LG, best_ms, device_name, group, parse_args
 
-LANE = 128
-LG = 16        # triangle rows of a block
 NB = 8         # blocks of tris
 RMAX = 4       # ray rows the inputs hold
-NO_ID = 1 << 30
 LOOPS = ("fori", "dynfori", "while")
 # the script's grid (probe_iter_cost.py:171-175): R, roll, dynamic, chain,
 # loop
@@ -67,36 +64,6 @@ def _check_plain_config(R, chain, loop) -> None:
         raise ValueError("the script's dynfori loop has no chain")
 
 
-def _group(tris, ids, o, d, t_min, t_best, best, block, shift):
-    """One iteration's body on (R, LG, LANE) working tensors: the script's
-    Moller-Trumbore, op for op (probe_iter_cost.py:83-111)."""
-    rows = slice(block * LG, (block + 1) * LG)
-    cols = (torch.arange(10, device=tris.device) + shift) % LANE
-    tb = tris[rows][:, cols]                        # (LG, 10)
-    idb = ids[rows][:, cols[9]][None, :, None]      # (1, LG, 1)
-    p0, e1, e2 = ([tb[:, k][None, :, None] for k in range(j, j + 3)]
-                  for j in (0, 3, 6))
-    pv0 = d[1] * e2[2] - d[2] * e2[1]
-    pv1 = d[2] * e2[0] - d[0] * e2[2]
-    pv2 = d[0] * e2[1] - d[1] * e2[0]
-    den = pv0 * e1[0] + pv1 * e1[1] + pv2 * e1[2]
-    sden = torch.where(den == 0.0, 1.0, den)
-    tv = [o[k] - p0[k] for k in range(3)]
-    u = (pv0 * tv[0] + pv1 * tv[1] + pv2 * tv[2]) / sden
-    qv0 = tv[1] * e1[2] - tv[2] * e1[1]
-    qv1 = tv[2] * e1[0] - tv[0] * e1[2]
-    qv2 = tv[0] * e1[1] - tv[1] * e1[0]
-    v = (qv0 * d[0] + qv1 * d[1] + qv2 * d[2]) / sden
-    t = (qv0 * e2[0] + qv1 * e2[1] + qv2 * e2[2]) / sden
-    ok = ((den != 0.0) & (u >= -1e-5) & (u <= 1.00001) & (v >= -1e-5)
-          & (u + v <= 1.00001) & (t >= t_min) & (t <= t_best[:, None, :]))
-    t_sl = torch.where(ok, t, float("inf"))
-    tg = t_sl.amin(dim=1)                           # (R, LANE)
-    idw = torch.where(t_sl == tg[:, None, :], idb, NO_ID).amin(dim=1)
-    take = tg < float("inf")
-    return torch.where(take, tg, t_best), torch.where(take, idw, best)
-
-
 def _drain_parity(best) -> int:
     """The parity of the script's wrapping int32 sum of min(best, 1): the
     parity of the number of odd terms."""
@@ -119,7 +86,7 @@ def iter_cost_plain(tris, o, d, t_min, R: int, roll: bool, dynamic: bool,
     def body(q, addr):
         block = addr % NB if chain else (q % NB if dynamic else 0)
         shift = (q % 12) * 10 if roll else 0
-        return _group(tris, ids, o3, d3, tmn, t_best, best, block, shift)
+        return group(tris, ids, o3, d3, tmn, t_best, best, block, shift)
 
     q = addr = n_run = 0
     if chain and loop == "while":  # q is the address (the script's wbody)
