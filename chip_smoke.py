@@ -12,11 +12,14 @@ Phases (any failure exits nonzero and prints no result):
    CUDA tensors, on the coated_diffuse_bunny tables: closest-hit on 65,536
    random rays plus the frame's camera rays, any-hit on random rays plus
    the frame's shadow rays. At the path's shape (the frame's camera rays,
-   its shadow rays) each is timed and its per-ray counters are read once,
-   from which the card's bound for the same work is computed;
+   its shadow rays) each is timed (the wrapper by CUDA events) and its
+   per-ray counters are read once, from which the card's bound for the same
+   work is computed. ptxas's registers, spills and stack frame of the bvh8t
+   walk's instantiations are printed beside its card layout's sizes;
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel (launch counts reset
-   just before, read just after);
+   just before, read just after). A copy of every ray batch the frame hands
+   the walk is kept for phase 8;
 5. slice parity: two blocks of 4,096 Morton-order pixels (2 spp, depth 8),
    one of walls and floor and one mostly on the bunny, on cuda with the
    kernels against cpu with the plain versions;
@@ -32,7 +35,14 @@ Phases (any failure exits nonzero and prints no result):
    version at the same counts, timed once, held bit for bit against one
    launch of its kernel on the same inputs (P3 also on small-id inputs;
    P2 and P1 in their outputs, stats and every visit's drained mask, and
-   also on a second seeded input set whose drains vary).
+   also on a second seeded input set whose drains vary);
+8. device times and the frame's traversal: every walk's kernel time alone
+   at the path's shape, from torch.profiler's kernel events; the frame's
+   bounce-2 batches (closest-hit and its shadow rays) held against the plain
+   walk and timed like the camera rays; then all of the frame's bvh8t
+   batches replayed, sample 0 bounce by bounce with counters and bounds,
+   the whole frame summed by mode. It comes last because a profiler session
+   slows the host-bound phases that follow it in the same process.
 
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...},
 with the card's name and power limit on a line before them. Needs one CUDA
@@ -44,6 +54,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +85,9 @@ KERNELS = (
 )
 # the walks of the kernel switch, in the order phase 3 holds them
 WALK_NAMES = ("bvh8t", "brute", "quad", "quadrow", "pair", "walk")
+# each walk's CUDA kernel, as the profiler names it
+KERNEL_OF = {"bvh8t": "bvh8t_walk", "brute": "t8_brute", "quad": "quad_walk",
+             "quadrow": "quad_walk", "pair": "pair_walk", "walk": "skip_walk"}
 # the card's bound (H100 SXM datasheet peaks at 700 W): bytes
 # over 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is longer.
 # Bytes: o, d, t_min, t_max, active in (33 B) and t, best out (8 B) per
@@ -180,6 +194,63 @@ def time_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float | None:
+    """Mean device milliseconds a launch of the CUDA kernels whose name
+    holds `kernel`, from torch.profiler's kernel events over `reps` calls
+    after a warm-up; None where three sessions record no device time (a
+    session now and then records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                us = getattr(ev, "device_time_total", None)
+                total_us += us if us is not None else ev.cuda_time_total
+                count += ev.count
+        if count and total_us > 0:
+            return total_us / count / 1e3
+    return None
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """ptxas -v's lines for each instantiation of `kernel`: registers,
+    spill stores and loads, stack frame and static shared memory bytes."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = dict(entry=m.group(1)) if kernel in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_frame=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    for c in out:  # W and EARLY_EXIT from the mangled template arguments
+        m = re.search(r"ILi(\d+)ELb([01])E", c["entry"])
+        c["instance"] = (f"W={m.group(1)}, "
+                         f"{'any_hit' if m.group(2) == '1' else 'closest_hit'}"
+                         if m else c["entry"])
+    return out
 
 
 @contextlib.contextmanager
@@ -317,9 +388,11 @@ def bound(ds, walk, counts, n_rays):
             tot[0] / n_live, tot[1] / n_live, tot[2] / n_live)
 
 
-def phase_kernel(ds, settings) -> dict:
-    """Every kernel vs its plain version in both modes; per (walk, mode)
-    stats at the path's shape."""
+def path_shapes(ds, settings) -> tuple:
+    """The frame's camera rays and their shadow rays toward the point light,
+    and the phase 3 batches: random rays before each. Returns (batches,
+    path_shape), each mode -> (origin, direction, t_min, t_max, active,
+    early_exit)."""
     from tpu_raytracing_torch.integrator.render import _pixel_grid
     from tpu_raytracing_torch.ops.camera_rays import generate_rays
     from tpu_raytracing_torch.ops.light_sampling import sample_light
@@ -368,34 +441,60 @@ def phase_kernel(ds, settings) -> dict:
                         full(n_cam, ds.meta.far_clip), yes(n_cam), False),
         "any_hit": (sh_o, sh_d, sh_tmin, sh_tmax, sh_act, True),
     }
+    return batches, path_shape
+
+
+def hold_and_time(ds, walk, kernel, plain, held, shape, label) -> tuple:
+    """Hold a walk's kernel against its plain version on the `held` batch,
+    then at `shape` read its counters once, time it (20 wrapper calls by
+    CUDA events) and its plain version (one call), and compute its bound.
+    Returns (ok, stats)."""
+    mode = "any_hit" if held[-1] else "closest_hit"
+    tp, bp = plain(ds, *held)
+    tk, bk = kernel(ds, *held)
+    torch.cuda.synchronize()
+    ok, err, report = compare(walk, mode, tk, bk, tp, bp)
+    print(f"# {walk} {mode}{label}: {report}: {'ok' if ok else 'FAIL'}",
+          flush=True)
+    n = shape[0].shape[0]
+    counts = torch.zeros((n, 3), dtype=torch.int32, device=shape[0].device)
+    kernel(ds, *shape, counts=counts)
+    bound_ms, bound_by, visits, boxes, tests = bound(ds, walk, counts, n)
+    ms = time_ms(lambda: kernel(ds, *shape), reps=20)
+    plain_ms = time_ms(lambda: plain(ds, *shape), reps=1, warmup=False)
+    print(f"# {walk} {mode}{label} timed ({n} rays, "
+          f"{int((counts[:, 0] > 0).sum())} live): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms; per live ray {visits:.2f} visits, {boxes:.2f} "
+          f"box tests, {tests:.2f} triangle tests; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({bound_ms / ms * 100:.2f}% of the kernel time)",
+          flush=True)
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    visits_per_ray=visits, box_tests_per_ray=boxes,
+                    tri_tests_per_ray=tests)
+
+
+def phase_kernel(ds, settings, ptxas_log: str) -> dict:
+    """Every kernel vs its plain version in both modes; per (walk, mode)
+    stats at the path's shape; the bvh8t walk's ptxas report."""
+    batches, path_shape = path_shapes(ds, settings)
+    card = ds.t8_card
+    print(f"# bvh8t card layout: {card.nodes.shape[0]} node records, "
+          f"{card.children.shape[0]} child records, {card.tris.shape[0]} "
+          f"triangle rows", flush=True)
+    for r in ptxas_report(ptxas_log, KERNEL_OF["bvh8t"]):
+        print(f"# ptxas bvh8t_walk {r['instance']}: {r.get('registers')} "
+              f"registers, {r.get('spill_stores')} / {r.get('spill_loads')} "
+              f"bytes spill stores / loads, {r.get('stack_frame')} bytes stack "
+              f"frame, {r.get('smem')} bytes shared memory", flush=True)
     stats = {}
     ok = True
     for walk, (kernel, plain) in walks().items():
         for mode, args in batches.items():
-            tk, bk = kernel(ds, *args)
-            tp, bp = plain(ds, *args)
-            torch.cuda.synchronize()
-            mode_ok, err, report = compare(walk, mode, tk, bk, tp, bp)
+            mode_ok, stats[walk, mode] = hold_and_time(
+                ds, walk, kernel, plain, args, path_shape[mode],
+                " at the path's shape")
             ok = ok and mode_ok
-            print(f"# {walk} {mode}: {report}: {'ok' if mode_ok else 'FAIL'}",
-                  flush=True)
-            shape = path_shape[mode]
-            n = shape[0].shape[0]
-            counts = torch.zeros((n, 3), dtype=torch.int32, device=dev)
-            kernel(ds, *shape, counts=counts)
-            bound_ms, bound_by, visits, boxes, tests = bound(ds, walk, counts, n)
-            ms = time_ms(lambda: kernel(ds, *shape), reps=20)
-            plain_ms = time_ms(lambda: plain(ds, *shape), reps=1, warmup=False)
-            print(f"# {walk} {mode} at the path's shape ({n} rays): kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.2f} ms; per live ray "
-                  f"{visits:.2f} visits, {boxes:.2f} box tests, {tests:.2f} "
-                  f"triangle tests; bound {bound_ms:.4f} ms by {bound_by} "
-                  f"({bound_ms / ms * 100:.2f}% of the kernel time)",
-                  flush=True)
-            stats[walk, mode] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, visits_per_ray=visits,
-                box_tests_per_ray=boxes, tri_tests_per_ray=tests)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
     return stats
@@ -407,14 +506,36 @@ def launch_counts() -> dict:
     return {w: dict(fn.launches) for w, fn in WALKS.items()}
 
 
-def phase_full_frame(scene, settings, card: str) -> dict:
+@contextlib.contextmanager
+def kept_batches(walk: str, store: list):
+    """Keep a copy of every ray batch the kernel switch hands `walk` in the
+    block, as (origin, direction, t_min, t_max, active, early_exit); the
+    walk's own wrapper still runs and counts its launches."""
+    from tpu_raytracing_torch.ops import traverse_kernels as TK
+
+    fn = TK.WALKS[walk]
+
+    def keep(ds, origin, direction, t_min, t_max, active, early_exit=False):
+        store.append((*(x.clone() for x in (origin, direction, t_min, t_max,
+                                             active)), early_exit))
+        return fn(ds, origin, direction, t_min, t_max, active, early_exit)
+
+    TK.WALKS[walk] = keep
+    try:
+        yield
+    finally:
+        TK.WALKS[walk] = fn
+
+
+def phase_full_frame(scene, settings, card: str, store: list) -> dict:
     from tpu_raytracing_torch.integrator.render import render
     from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
 
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = render(scene, settings)
+    with kept_batches("bvh8t", store):
+        out = render(scene, settings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -422,7 +543,8 @@ def phase_full_frame(scene, settings, card: str) -> dict:
     mean = float(img.mean())
     print(f"# full frame {img.shape[1]}x{img.shape[0]}, "
           f"{settings.samples_per_pixel} spp, depth {settings.max_ray_depth}: "
-          f"{wall:.3f} s wall (scene compile included), {out.rays_traced} "
+          f"{wall:.3f} s wall (scene compile and the batch copies "
+          f"included), {out.rays_traced} "
           f"rays, {out.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; "
           f"mean {mean:.6g}; launches {launches['bvh8t']}", flush=True)
     if not np.isfinite(img).all():
@@ -842,11 +964,90 @@ def check_p1(results, launches) -> tuple:
         P1_VARIED_ITERS, assess)
 
 
-def kernel_entries(stats: dict, frame: dict, switch: dict) -> list:
+def phase_device(ds, settings, stats: dict, frame: list) -> dict:
+    """Device times at the path's shape into `stats`; the frame's bounce-2
+    batches held and timed; the frame's traversal replayed, sample 0 by
+    bounce (counters and bound from one counting launch a batch) and the
+    whole frame by mode."""
+    from tpu_raytracing_torch.ops.traverse_bvh8t import intersect_tris_plain
+    from tpu_raytracing_torch.ops.traverse_kernels import WALKS
+
+    _, path_shape = path_shapes(ds, settings)
+    for walk, (kernel, _) in walks().items():
+        for mode, shape in path_shape.items():
+            st = stats[walk, mode]
+            st["device_ms"] = device_ms(lambda: kernel(ds, *shape), 20,
+                                        KERNEL_OF[walk])
+            dev_txt = ("not measured" if st["device_ms"] is None
+                       else f"{st['device_ms']:.4f} ms")
+            print(f"# {walk} {mode} at the path's shape: kernel "
+                  f"{st['ms']:.4f} ms, device time {dev_txt}", flush=True)
+    kernel = WALKS["bvh8t"]
+    depth = settings.max_ray_depth + 1  # closest-hit launches a sample
+    modes = ["any_hit" if b[-1] else "closest_hit" for b in frame]
+    n_closest = modes.count("closest_hit")
+    if n_closest != settings.samples_per_pixel * depth or len(frame) < 4:
+        raise AssertionError(f"the frame handed the walk {len(frame)} "
+                             f"batches, {n_closest} closest-hit")
+    # bounce 2 of sample 0: the third closest-hit batch, then its shadow rays
+    i2 = [i for i, m in enumerate(modes) if m == "closest_hit"][2]
+    ok, out = True, {}
+    for b in (frame[i2], frame[i2 + 1]):
+        mode = "any_hit" if b[-1] else "closest_hit"
+        good, st = hold_and_time(ds, "bvh8t", kernel, intersect_tris_plain, b,
+                                 b, " on the frame's bounce-2 rays")
+        st["device_ms"] = device_ms(lambda: kernel(ds, *b), 20,
+                                    KERNEL_OF["bvh8t"])
+        dev_txt = ("not measured" if st["device_ms"] is None
+                   else f"{st['device_ms']:.4f} ms")
+        print(f"# bvh8t {mode} on the frame's bounce-2 rays: device time "
+              f"{dev_txt}", flush=True)
+        ok = ok and good
+        out["bounce2_" + mode] = st
+    # sample 0 bounce by bounce: one counting launch and 5 timed launches
+    for i, b in enumerate(frame[:2 * depth]):
+        n = b[0].shape[0]
+        counts = torch.zeros((n, 3), dtype=torch.int32, device=b[0].device)
+        kernel(ds, *b, counts=counts)
+        bound_ms, _, visits, boxes, tests = bound(ds, "bvh8t", counts, n)
+        ms = time_ms(lambda: kernel(ds, *b), reps=5)
+        print(f"# frame sample 0, bounce {i // 2}, {modes[i]}: "
+              f"{int((counts[:, 0] > 0).sum())} live of {n} rays, kernel "
+              f"{ms:.4f} ms; per live ray {visits:.2f} visits, {boxes:.2f} "
+              f"box tests, {tests:.2f} triangle tests; bound {bound_ms:.4f} "
+              f"ms", flush=True)
+    # the whole frame's traversal, by mode: wrapper time by CUDA events
+    # (one warm-up replay), then the kernels' device time in one session
+    for mode in ("closest_hit", "any_hit"):
+        mine = [b for b, m in zip(frame, modes) if m == mode]
+
+        def replay(mine=mine):
+            for b in mine:
+                kernel(ds, *b)
+
+        ms = time_ms(replay, reps=1)
+        dev = device_ms(replay, 1, KERNEL_OF["bvh8t"])
+        dev_txt = "not measured" if dev is None else f"{dev * len(mine):.4f}"
+        print(f"# frame traversal, {mode}: {len(mine)} launches, {ms:.4f} "
+              f"ms by CUDA events, {dev_txt} ms device time, in all",
+              flush=True)
+        out["frame_" + mode] = dict(launches=len(mine), ms=ms,
+                                    device_ms=None if dev is None
+                                    else dev * len(mine))
+    if not ok:
+        raise AssertionError("the bvh8t walk disagrees with its plain "
+                             "version on the frame's bounce-2 rays")
+    return out
+
+
+def kernel_entries(stats: dict, frame: dict, switch: dict,
+                   traversal: dict) -> list:
     """The {"kernels": [...]} entries. bvh8t's launches are the full
     frame's (phase 4), the other walks' their switch frame's (phase 6, both
     modes); times and bounds are at the path's shape of the entry's mode
-    (closest-hit for the walks, whose any-hit numbers ride along)."""
+    (closest-hit for the walks, whose any-hit numbers ride along). bvh8t's
+    entries also carry their mode's bounce-2 batch and the frame's
+    traversal in all (phase 8)."""
     kernels = []
     for kname, walk, modes, source, line in KERNELS:
         main_mode = modes[0]
@@ -858,6 +1059,9 @@ def kernel_entries(stats: dict, frame: dict, switch: dict) -> list:
             **stats[walk, main_mode], library_ms=None,
             library="none: no PyTorch call computes a BVH walk",
             mode=main_mode)
+        if walk == "bvh8t":
+            entry["bounce2"] = traversal["bounce2_" + main_mode]
+            entry["frame_traversal"] = traversal["frame_" + main_mode]
         if len(modes) > 1:
             entry["launches_by_mode"] = switch[walk]
             entry["any_hit"] = stats[walk, "any_hit"]
@@ -899,14 +1103,18 @@ def main() -> int:
     print(f"# scene compile (numpy BVH build included): "
           f"{time.perf_counter() - t0:.3f} s on {card}", flush=True)
     failed = []
+    batches = []  # every ray batch the full frame hands the bvh8t walk
+    results = {}
     phases = (
-        ("kernel vs plain", lambda: phase_kernel(ds, settings)),
-        ("full frame", lambda: phase_full_frame(scene, settings, card)),
+        ("kernel vs plain", lambda: phase_kernel(ds, settings, log)),
+        ("full frame", lambda: phase_full_frame(scene, settings, card,
+                                                batches)),
         ("slice parity", lambda: phase_parity(scene, settings)),
         ("kernel switch", lambda: phase_switch(scene, settings, card)),
         ("probes", lambda: phase_probes(card)),
+        ("device times", lambda: phase_device(
+            ds, settings, results["kernel vs plain"], batches)),
     )
-    results = {}
     for phase, run in phases:
         t0 = time.perf_counter()
         try:
@@ -919,7 +1127,8 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     kernels = kernel_entries(results["kernel vs plain"],
-                             results["full frame"], results["kernel switch"])
+                             results["full frame"], results["kernel switch"],
+                             results["device times"])
     kernels += results["probes"]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -119,6 +119,25 @@ def test_walk_kernel_vs_plain(cuda_scene, walk, early_exit):
                   exact=walk in ("brute", "quad", "quadrow"))
 
 
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+def test_kernel_repeats_bit_for_bit(cuda_scene, early_exit):
+    """Three launches on the same rays: each agrees with the plain walk and
+    all three are bit-equal, whichever warp the persistent grid hands each
+    ray to."""
+    ds = cuda_scene
+    args = _rays(ds, 65536, 22, early_exit)
+    tp, bp = intersect_tris_plain(ds, *args, early_exit)
+    runs = [intersect_tris_bvh8t(ds, *args, early_exit) for _ in range(3)]
+    torch.cuda.synchronize()
+    act = args[4].cpu().numpy()
+    for tk, bk in runs:
+        _assert_agree(tk, bk, tp, bp, act, early_exit)
+    for tk, bk in runs[1:]:
+        assert torch.equal(bk, runs[0][1])
+        assert torch.equal(tk.view(torch.int32), runs[0][0].view(torch.int32))
+
+
 @pytest.mark.parametrize("walk", ["bvh8t", *WALKS])
 def test_counts(cuda_scene, walk):
     """The per-ray counters: work on live rays, none on inactive ones, and
@@ -155,7 +174,8 @@ def test_stack_caps_raise(cuda_scene):
 
 @pytest.mark.parametrize("width", [8, 32])
 def test_kernel_other_widths(cuda_scene, width):
-    """The W=8 and W=32 instantiations on tables of those widths."""
+    """The W=8 and W=32 instantiations on tables of those widths and their
+    card layout."""
     ds = cuda_scene
     p = ds.tri_pack.cpu().numpy()[:ds.meta.n_tris]
     lo = np.minimum(np.minimum(p[:, 0:3], p[:, 3:6]), p[:, 6:9])
@@ -168,6 +188,7 @@ def test_kernel_other_widths(cuda_scene, width):
         ds, t8_nodes=torch.from_numpy(nodes).to(dev),
         t8_meta=torch.from_numpy(meta).to(dev),
         t8_tris=torch.from_numpy(tris).to(dev),
+        t8_card=SB.bvh8t_card(nodes, meta, tris, width, 16, dev),
         meta=dataclasses.replace(ds.meta, t8_width=width, t8_stack=stack))
     args = _rays(ds, 16384, 17, False)
     tk, bk = intersect_tris_bvh8t(ds_w, *args)

@@ -1,203 +1,392 @@
-// bvh8t wide-node walk: closest-hit and any-hit ray queries, one thread per ray.
+// bvh8t wide-node walk: closest-hit and any-hit ray queries, a lane per ray,
+// persistent warps.
 //
 // Replaces tpu_raytracing/ops/traverse_pallas.py::_t8_kernel (launched by
-// _t8_tiles). It walks the same tables the JAX package builds
-// (device/scene_buffers.py::_bvh8t_layout), so winners compare slot for slot:
+// _t8_tiles). It answers the same query over the same tree: per ray (t, best),
+// (t_max, -1) for misses and inactive lanes. It reads the card layout that
+// device/scene_buffers.py::bvh8t_card_layout builds from the JAX tables
+// (_bvh8t_layout), which keeps their slot numbering:
 //
-//   node nid, child slot s:  nodes[((nid / 16) * W + s) * 128 + (nid % 16) * 8 + k]
-//                            k 0-2 box min, 3-5 box max (NaN in empty slots)
-//   meta[nid] = (child_base << FLD | n_int, leaf_base << FLD | n_leaf),
-//                            FLD = 5 (6 at W = 32); internal children in slots
-//                            s < n_int lead to node child_base + s, leaf groups
-//                            in slots s >= W - n_leaf lead to group
-//                            leaf_base + (W - 1 - s)
-//   group q, row r < LG:     tris[((q / 12) * LG + r) * 128 + (q % 12) * 10 + k]
-//                            k 0-2 p0, 3-5 e1, 6-8 e2, 9 triangle id as int32 bits;
-//                            unused rows are zero and fail den != 0
+//   nodes[nid]     = (first child record, n_int, n_leaf, child_base)   int4
+//   children[rec]  = (min3, max3, link, rows)                    two float4
+//                    the real children of each node in slot order: internal
+//                    slots 0..n_int-1 (link = child node child_base + s,
+//                    rows = 0), then leaf slots W-n_leaf..W-1 (link = first
+//                    triangle row of the group, rows = its row count)
+//   tris[row]      = (p0, e1, e2, id bits, 0, 0)               three float4
+//                    only rows that hold a triangle, each group contiguous
 //
-// The TPU kernel walked a 512-ray tile in lockstep with a shared scalar stack
-// because Mosaic has no per-lane gather; here each thread walks its own ray
-// with a private (child_base, pending bitmask) stack in local memory and pops
-// with ffs. Leaf groups use the TPU kernel's Moller-Trumbore exactly: the
-// lowest id among equal t inside a group, and t <= t_best to update.
+// Hit masks keep the slot meaning of the JAX tables, internal children pop
+// in ffs order and hit leaf groups run in ascending slot, so the visit order,
+// the in-group tie rule (the lowest id among equal t, whichever lane tests
+// the row) and the t <= t_best update are the TPU kernel's, and every
+// counter matches the walk over the JAX tables.
 //
-// What bounds it on the H100: each visit is a chain of dependent loads (meta,
-// then up to W child boxes at a 512-byte stride, then LG triangle rows), rays
-// of one warp diverge in depth and leaf count, and the stack lives in local
-// memory. This is the simple first version; a Hopper-shaped layout (boxes
-// packed per node, quantized) or a wavefront scheduler is later work.
+// What bounds it on the H100: neither bytes nor FLOPs (both bounds are a few
+// percent of its time) but the latency of dependent loads and, above all,
+// the divergence of the rays of a warp and the tail it leaves: a run of
+// neighbouring costly rays (grazing the bunny, each testing many boxes and
+// rows) holds its warp, and the launch, open after the others are done. The
+// TPU layout cost latency besides: a visit read its child boxes as 96 scalar
+// loads 512 bytes apart through L2, and a leaf group all LG rows, padding
+// included. What the design does:
+// - a node record is one 16-byte load, a child box two, a triangle row
+//   three, all through L1 with __ldg, over the group's real rows only. The
+//   bunny's node level (116 KB) stays in L1/L2; staging it in shared memory
+//   with a bulk asynchronous copy measured no faster (PERF.md);
+// - the grid is persistent: SMs x the blocks that fit on one. A warp whose
+//   lanes are all idle takes the next 32 fetch positions from a global
+//   counter (atomicAdd on a scratch int the launch zeroes), which stand for
+//   kChunk consecutive rays from each of 32 / kChunk places spread over the
+//   batch (ray_at): a run of costly rays (neighbours on the screen) spreads
+//   over many warps instead of holding one warp for all of it;
+// - the warp walks in lockstep, one node visit a lane a step; when at most
+//   kCoop lanes have leaf groups to test, the warp tests each group's rows
+//   together, a row a lane, and takes the least (t, id) across the warp;
+//   otherwise each lane tests its own groups a row at a time, with the next
+//   row's loads issued before the current row's test. So the last costly
+//   rays of a launch, alone in their warps, test a group in one row's time;
+// - the traversal stack keeps its top entry in registers; the entries below
+//   it (at most the scene's t8_stack, 6 on the bunny, checked against
+//   kStackCap by the wrapper) stay in local memory, which a visit touches
+//   only when it descends from a node with unvisited siblings.
+// A BVH walk has no matrix product, so wgmma and the tensor cores have no
+// role; nor do TMA tensor maps. chip_smoke.py prints ptxas's registers,
+// spills and stack frame of every instantiation.
 //
 // Numerics: build without fast math and with -fmad=false, so every divide is
-// IEEE and t matches the plain PyTorch walk. The slab test and
-// Moller-Trumbore are traverse_common.cuh's (NaN-propagating min/max);
-// empty slots are masked by the slot counts besides.
+// IEEE and t is bit-equal to the plain PyTorch walk's. The slab test and
+// Moller-Trumbore are traverse_common.cuh's.
 
 #include "traverse_common.cuh"
 
 namespace {
 
-using tpu_rt::kRow;
 using tpu_rt::kStackCap;
 
-constexpr int kNodesPerBlock = 16;
-constexpr int kGroupsPerBlock = 12;
+constexpr int kThreads = 512;  // threads a block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunk = 4;  // consecutive rays behind consecutive fetch positions
+constexpr int kCoop = 4;   // lanes with leaf groups at or below which the warp
+                           // tests each group's rows together
+
+// The lowest (t, id) across the warp, as the in-group tie rule orders them.
+__device__ __forceinline__ void warp_min(float* t, int* id) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ot = __shfl_xor_sync(kFull, *t, o);
+    const int oi = __shfl_xor_sync(kFull, *id, o);
+    if (ot < *t || (ot == *t && oi < *id)) {
+      *t = ot;
+      *id = oi;
+    }
+  }
+}
+
+// The ray behind fetch position k: positions go out in order, a warp's 32
+// at a time, and each 32 take kChunk consecutive rays from 32 / kChunk
+// places n_batches chunks apart, so that a run of costly rays spreads over
+// many warps. Returns -1 past the last ray.
+__device__ __forceinline__ int ray_at(int k, int n_batches, int n_rays) {
+  const int j = (k % 32) / kChunk;
+  const int r = ((k / 32) + j * n_batches) * kChunk + k % kChunk;
+  return r < n_rays ? r : -1;
+}
 
 template <int W, bool EARLY_EXIT>
-__global__ void bvh8t_walk(const float* __restrict__ nodes,
-                           const float* __restrict__ tris,
-                           const int* __restrict__ meta,
-                           const float* __restrict__ origin,
-                           const float* __restrict__ direction,
-                           const float* __restrict__ t_min_in,
-                           const float* __restrict__ t_max_in,
-                           const bool* __restrict__ active,
-                           float* __restrict__ t_out,
-                           int* __restrict__ best_out,
-                           int* __restrict__ counts,
-                           int n_rays, int leaf_rows) {
-  constexpr int FLD = (W == 32) ? 6 : 5;
-  constexpr int FLD_MASK = (1 << FLD) - 1;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+__global__ void __launch_bounds__(kThreads, 1)
+    bvh8t_walk(const int4* __restrict__ nodes,
+               const float4* __restrict__ children,
+               const float4* __restrict__ tris, int* __restrict__ next_ray,
+               const float* __restrict__ origin,
+               const float* __restrict__ direction,
+               const float* __restrict__ t_min_in,
+               const float* __restrict__ t_max_in,
+               const bool* __restrict__ active, float* __restrict__ t_out,
+               int* __restrict__ best_out, int* __restrict__ counts,
+               int n_rays) {
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = (n_rays + kChunk - 1) / kChunk;
+  const int n_batches = (n_chunks + 32 / kChunk - 1) / (32 / kChunk);
+  // this lane's ray (-1: idle) and its walk: the stack's top entry (base
+  // node, pending slots) in registers, the entries below it in local memory
+  int i = -1;
+  tpu_rt::Ray ray{};
+  float t_best = 0.f;
+  int best = -1, visits = 0, boxes = 0, tests = 0;
+  uint64_t stack[kStackCap];
+  int sp = 0, cur_base = 0;
+  uint32_t cur_mask = 0;
+  bool open = true;  // warp-uniform: the counter may still hand out rays
 
-  float t_best = t_max_in[i];
-  int best = -1;
-  int visits = 0, boxes = 0, tests = 0;
-  if (!active[i]) {
-    t_out[i] = t_best;
-    best_out[i] = best;
-    tpu_rt::store_counts(counts, i, visits, boxes, tests);
-    return;
-  }
-  const tpu_rt::Ray ray = tpu_rt::load_ray(origin, direction, t_min_in, i);
-
-  int stack_base[kStackCap];
-  uint32_t stack_mask[kStackCap];
-  stack_base[0] = 0;
-  stack_mask[0] = 1u;  // the root: node 0 = base 0 + slot 0
-  int sp = 1;
-
-  while (sp > 0) {
-    uint32_t pending = stack_mask[sp - 1];
-    const int base = stack_base[sp - 1];
-    const int slot = __ffs(pending) - 1;
-    pending &= pending - 1;
-    if (pending == 0) {
-      --sp;
-    } else {
-      stack_mask[sp - 1] = pending;
+  for (;;) {
+    // a warp whose lanes are all idle takes the next 32 fetch positions
+    if (open && __ballot_sync(kFull, i < 0) == kFull) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(next_ray, 32);
+      base = __shfl_sync(kFull, base, 0);
+      if (base + 32 >= 32 * n_batches) open = false;
+      const int r =
+          base < 32 * n_batches ? ray_at(base + lane, n_batches, n_rays) : -1;
+      if (r >= 0) {
+        t_best = t_max_in[r];
+        best = -1;
+        visits = boxes = tests = 0;
+        if (active[r]) {
+          i = r;
+          ray = tpu_rt::load_ray(origin, direction, t_min_in, r);
+          sp = 0;
+          cur_base = 0;
+          cur_mask = 1u;  // the root: node 0 = base 0 + slot 0
+        } else {
+          t_out[r] = t_best;
+          best_out[r] = best;
+          tpu_rt::store_counts(counts, r, 0, 0, 0);
+        }
+      }
     }
-    const int nid = base + slot;
-    const int m0 = meta[2 * nid];
-    const int m1 = meta[2 * nid + 1];
-    const int child_base = (int)((uint32_t)m0 >> FLD);
-    const int n_int = m0 & FLD_MASK;
-    const int leaf_base = (int)((uint32_t)m1 >> FLD);
-    const int n_leaf = m1 & FLD_MASK;
-    ++visits;
-    boxes += n_int + n_leaf;
+    if (__ballot_sync(kFull, i >= 0) == 0) {
+      if (open) continue;
+      break;
+    }
 
-    const float* blk = nodes + (size_t)(nid / kNodesPerBlock) * W * kRow +
-                       (nid % kNodesPerBlock) * 8;
-    uint32_t hit = 0;
+    // one node visit a live lane: its real children's boxes
+    uint32_t lm = 0;
+    int leaf_rec = 0;  // child record of leaf slot s: leaf_rec + s
+    if (i >= 0) {
+      if (cur_mask == 0) {
+        const uint64_t e = stack[--sp];
+        cur_base = static_cast<int>(e >> 32);
+        cur_mask = static_cast<uint32_t>(e);
+      }
+      const int nid = cur_base + __ffs(cur_mask) - 1;
+      cur_mask &= cur_mask - 1;
+      const int4 nd = __ldg(nodes + nid);
+      const int first = nd.x, n_int = nd.y, n_leaf = nd.z;
+      const int n_child = n_int + n_leaf;
+      ++visits;
+      boxes += n_child;
+      uint32_t hit = 0;
 #pragma unroll 4
-    for (int s = 0; s < W; ++s) {
-      if (s >= n_int && s < W - n_leaf) continue;  // empty slot: NaN box
-      float t0;
-      if (tpu_rt::slab_hit(ray, blk + s * kRow, t_best, &t0)) hit |= 1u << s;
-    }
-    const uint32_t int_mask =
-        n_int >= 32 ? 0xffffffffu : ((1u << n_int) - 1u);
-    const uint32_t imask = hit & int_mask;
-    if (imask != 0) {
-      stack_base[sp] = child_base;
-      stack_mask[sp] = imask;
-      ++sp;
+      for (int k = 0; k < n_child; ++k) {
+        const float4 a = __ldg(children + 2 * (first + k));
+        const float4 b = __ldg(children + 2 * (first + k) + 1);
+        const float box[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
+        const int s = k < n_int ? k : k + (W - n_child);
+        float t0;
+        if (tpu_rt::slab_hit(ray, box, t_best, &t0)) hit |= 1u << s;
+      }
+      const uint32_t int_mask =
+          n_int >= 32 ? 0xffffffffu : ((1u << n_int) - 1u);
+      const uint32_t imask = hit & int_mask;
+      if (imask != 0) {
+        if (cur_mask != 0) {
+          stack[sp++] =
+              (static_cast<uint64_t>(static_cast<uint32_t>(cur_base)) << 32) |
+              cur_mask;
+        }
+        cur_base = nd.w;
+        cur_mask = imask;
+      }
+      lm = hit & ~int_mask;
+      leaf_rec = first + n_child - W;
     }
 
-    uint32_t lm = hit & ~int_mask;
-    while (lm != 0) {
-      const int s = __ffs(lm) - 1;
-      lm &= lm - 1;
-      const int q = leaf_base + (W - 1 - s);
-      const float* grp = tris + (size_t)(q / kGroupsPerBlock) * leaf_rows * kRow +
-                         (q % kGroupsPerBlock) * 10;
-      float tg = INFINITY;
-      int idg = 0x7fffffff;
-      for (int r = 0; r < leaf_rows; ++r) {
-        const float* row = grp + r * kRow;
-        float t;
-        if (tpu_rt::tri_hit(ray, row[0], row[1], row[2], row[3], row[4], row[5],
-                            row[6], row[7], row[8], t_best, &t)) {
-          const int id = __float_as_int(row[9]);
-          if (t < tg || (t == tg && id < idg)) {
-            tg = t;
-            idg = id;
+    // the hit leaf groups, in ascending slot
+    const uint32_t leafy = __ballot_sync(kFull, lm != 0);
+    if (__popc(leafy) <= kCoop) {
+      // few lanes have groups to test: the warp tests each group's rows
+      // together, a row a lane, and keeps the least (t, id)
+      for (uint32_t q = leafy; q != 0; q &= q - 1) {
+        const int src = __ffs(q) - 1;
+        tpu_rt::Ray rs{};
+        rs.ox = __shfl_sync(kFull, ray.ox, src);
+        rs.oy = __shfl_sync(kFull, ray.oy, src);
+        rs.oz = __shfl_sync(kFull, ray.oz, src);
+        rs.dx = __shfl_sync(kFull, ray.dx, src);
+        rs.dy = __shfl_sync(kFull, ray.dy, src);
+        rs.dz = __shfl_sync(kFull, ray.dz, src);
+        rs.t_min = __shfl_sync(kFull, ray.t_min, src);
+        float tb = __shfl_sync(kFull, t_best, src);
+        int bb = __shfl_sync(kFull, best, src);
+        uint32_t m = __shfl_sync(kFull, lm, src);
+        const int rec = __shfl_sync(kFull, leaf_rec, src);
+        int nt = 0;
+        bool stop = false;
+        while (m != 0) {
+          const int s = __ffs(m) - 1;
+          m &= m - 1;
+          const float4 lk = __ldg(children + 2 * (rec + s) + 1);
+          const int row = __float_as_int(lk.z), nrows = __float_as_int(lk.w);
+          nt += nrows;
+          float t = INFINITY;
+          int id = 0x7fffffff;
+          if (lane < nrows) {
+            const float4* p = tris + 3 * static_cast<size_t>(row + lane);
+            const float4 c0 = __ldg(p), c1 = __ldg(p + 1), c2 = __ldg(p + 2);
+            float th;
+            if (tpu_rt::tri_hit(rs, c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z,
+                                c1.w, c2.x, tb, &th)) {
+              t = th;
+              id = __float_as_int(c2.y);
+            }
+          }
+          warp_min(&t, &id);
+          if (t < INFINITY) {
+            tb = t;
+            bb = id;
+            if (EARLY_EXIT) {
+              stop = true;
+              break;
+            }
+          }
+        }
+        if (lane == src) {
+          t_best = tb;
+          best = bb;
+          tests += nt;
+          if (stop) {
+            cur_mask = 0;
+            sp = 0;
           }
         }
       }
-      if (counts != nullptr) tests += tpu_rt::t8_used_rows(grp, leaf_rows);
-      if (tg < INFINITY) {
-        t_best = tg;
-        best = idg;
-        if (EARLY_EXIT) {
-          sp = 0;
-          break;
+    } else {
+      // each lane its own groups, a row at a time, the next row's loads
+      // issued before the current row's test
+      while (lm != 0) {
+        const int s = __ffs(lm) - 1;
+        lm &= lm - 1;
+        const float4 lk = __ldg(children + 2 * (leaf_rec + s) + 1);
+        const int nrows = __float_as_int(lk.w);
+        const float4* row =
+            tris + 3 * static_cast<size_t>(__float_as_int(lk.z));
+        float tg = INFINITY;
+        int idg = 0x7fffffff;
+        float4 c0 = make_float4(0.f, 0.f, 0.f, 0.f), c1 = c0, c2 = c0;
+        if (nrows > 0) {
+          c0 = __ldg(row);
+          c1 = __ldg(row + 1);
+          c2 = __ldg(row + 2);
+        }
+        for (int r = 0; r < nrows; ++r) {
+          float4 n0 = c0, n1 = c1, n2 = c2;
+          if (r + 1 < nrows) {
+            n0 = __ldg(row + 3 * (r + 1));
+            n1 = __ldg(row + 3 * (r + 1) + 1);
+            n2 = __ldg(row + 3 * (r + 1) + 2);
+          }
+          float t;
+          if (tpu_rt::tri_hit(ray, c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z,
+                              c1.w, c2.x, t_best, &t)) {
+            const int id = __float_as_int(c2.y);
+            if (t < tg || (t == tg && id < idg)) {
+              tg = t;
+              idg = id;
+            }
+          }
+          c0 = n0;
+          c1 = n1;
+          c2 = n2;
+        }
+        tests += nrows;
+        if (tg < INFINITY) {
+          t_best = tg;
+          best = idg;
+          if (EARLY_EXIT) {
+            cur_mask = 0;
+            sp = 0;
+            break;
+          }
         }
       }
     }
+
+    // a finished walk writes its answer and frees its lane
+    if (i >= 0 && cur_mask == 0 && sp == 0) {
+      t_out[i] = t_best;
+      best_out[i] = best;
+      tpu_rt::store_counts(counts, i, visits, boxes, tests);
+      i = -1;
+    }
   }
-  t_out[i] = t_best;
-  best_out[i] = best;
-  tpu_rt::store_counts(counts, i, visits, boxes, tests);
+}
+
+struct Args {
+  const int4* nodes;
+  const float4* children;
+  const float4* tris;
+  int* next_ray;
+  const float* origin;
+  const float* direction;
+  const float* t_min;
+  const float* t_max;
+  const bool* active;
+  float* t_out;
+  int* best_out;
+  int* counts;
+  int n_rays;
+};
+
+// The persistent launch of one instantiation: SMs x the blocks that fit on
+// one SM, no more than the batch needs, behind a memset of the ray counter.
+template <int W, bool EARLY_EXIT>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  auto* kernel = bvh8t_walk<W, EARLY_EXIT>;
+  // the SMs and the blocks one holds, asked again only when the device
+  // changes, not at every launch (a host cost)
+  static int known_dev = -1, sms = 0, per_sm = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != known_dev) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, 0);
+    }
+    if (err != cudaSuccess) return err;
+    known_dev = dev;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = min(sms * per_sm, (a.n_rays + kThreads - 1) / kThreads);
+  err = cudaMemsetAsync(a.next_ray, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, 0, stream>>>(
+      a.nodes, a.children, a.tris, a.next_ray, a.origin, a.direction, a.t_min,
+      a.t_max, a.active, a.t_out, a.best_out, a.counts, a.n_rays);
+  return cudaGetLastError();
 }
 
 template <int W>
-cudaError_t launch(bool early_exit, dim3 grid, dim3 block, cudaStream_t stream,
-                   const float* nodes, const float* tris, const int* meta,
-                   const float* origin, const float* direction, const float* t_min,
-                   const float* t_max, const bool* active, float* t_out,
-                   int* best_out, int* counts, int n_rays, int leaf_rows) {
-  if (early_exit) {
-    bvh8t_walk<W, true><<<grid, block, 0, stream>>>(
-        nodes, tris, meta, origin, direction, t_min, t_max, active, t_out,
-        best_out, counts, n_rays, leaf_rows);
-  } else {
-    bvh8t_walk<W, false><<<grid, block, 0, stream>>>(
-        nodes, tris, meta, origin, direction, t_min, t_max, active, t_out,
-        best_out, counts, n_rays, leaf_rows);
-  }
-  return cudaGetLastError();
+cudaError_t launch_width(bool early_exit, const Args& a, cudaStream_t s) {
+  return early_exit ? launch<W, true>(a, s) : launch<W, false>(a, s);
 }
 
 }  // namespace
 
-extern "C" int tpu_rt_bvh8t_walk(const float* nodes, const float* tris,
-                                 const int* meta, const float* origin,
-                                 const float* direction, const float* t_min,
-                                 const float* t_max, const bool* active,
-                                 float* t_out, int* best_out, int* counts,
-                                 int n_rays, int width, int leaf_rows,
-                                 int early_exit, void* stream) {
+extern "C" int tpu_rt_bvh8t_walk(const int* nodes, const float* children,
+                                 const float* tris, int* next_ray,
+                                 const float* origin, const float* direction,
+                                 const float* t_min, const float* t_max,
+                                 const bool* active, float* t_out,
+                                 int* best_out, int* counts, int n_rays,
+                                 int width, int early_exit, void* stream) {
   if (n_rays <= 0) return 0;
-  if (leaf_rows <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(128);
-  const dim3 grid((n_rays + 127) / 128);
+  const Args a{reinterpret_cast<const int4*>(nodes),
+               reinterpret_cast<const float4*>(children),
+               reinterpret_cast<const float4*>(tris),
+               next_ray, origin, direction, t_min, t_max, active, t_out,
+               best_out, counts, n_rays};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ee = early_exit != 0;
   switch (width) {
     case 8:
-      return (int)launch<8>(ee, grid, block, s, nodes, tris, meta, origin,
-                            direction, t_min, t_max, active, t_out, best_out,
-                            counts, n_rays, leaf_rows);
+      return (int)launch_width<8>(ee, a, s);
     case 16:
-      return (int)launch<16>(ee, grid, block, s, nodes, tris, meta, origin,
-                             direction, t_min, t_max, active, t_out, best_out,
-                             counts, n_rays, leaf_rows);
+      return (int)launch_width<16>(ee, a, s);
     case 32:
-      return (int)launch<32>(ee, grid, block, s, nodes, tris, meta, origin,
-                             direction, t_min, t_max, active, t_out, best_out,
-                             counts, n_rays, leaf_rows);
+      return (int)launch_width<32>(ee, a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

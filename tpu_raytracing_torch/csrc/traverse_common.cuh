@@ -141,7 +141,8 @@ __device__ __forceinline__ void packed_leaf(const Ray& r,
 
 // Rows of a bvh8t group (p0, e1, e2, id at a row stride of kRow) that hold
 // a triangle: the rows that pad a group are zero in all nine vertex words.
-// Only the counting launches call it.
+// Only the brute kernel's counting launches call it (the bvh8t walk's card
+// layout holds these rows only).
 __device__ __forceinline__ int t8_used_rows(const float* grp, int leaf_rows) {
   int n = 0;
   for (int r = 0; r < leaf_rows; ++r) {

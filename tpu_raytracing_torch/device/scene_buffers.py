@@ -71,6 +71,9 @@ G8_PER_BLOCK = 12  # tri groups per tri block (10 columns each)
 # chunks (scene_buffers.py::_t8_chunk_layout); the port walks one table set
 MAX_UNCHUNKED_BYTES = 6 * 1024 * 1024
 
+# f32 words of a triangle row of the bvh8t card layout (csrc/bvh8t_walk.cu)
+T8_ROW_WORDS = 12
+
 
 def _unsupported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -106,6 +109,17 @@ class SceneMeta:
     slot_kinds: Tuple[Tuple[int, ...], ...] = ()
 
 
+@dataclass(frozen=True)
+class Bvh8tCard:
+    """The bvh8t walk's card layout (csrc/bvh8t_walk.cu), a pure function of
+    the JAX-identical t8 tables (`bvh8t_card_layout`)."""
+
+    nodes: torch.Tensor     # (N8, 4) i32: first child record, n_int,
+                            # n_leaf, child_base
+    children: torch.Tensor  # (C, 8) f32: box min3 max3, link, rows (bits)
+    tris: torch.Tensor      # (R, 12) f32: p0 e1 e2, id bits, 2 zero words
+
+
 @dataclass
 class DeviceScene:
     """The slice's scene tables as torch tensors on one device."""
@@ -134,6 +148,7 @@ class DeviceScene:
     cam_min_diff: torch.Tensor          # (4, 3)
     bounds_center: torch.Tensor  # (3,)
     bounds_radius: torch.Tensor  # () f32
+    t8_card: Bvh8tCard           # the bvh8t kernel's layout of t8_*
     meta: SceneMeta
 
     @property
@@ -141,8 +156,10 @@ class DeviceScene:
         return self.tri_shade.device
 
 
+# the tables that have a JAX leaf of the same name
 LEAF_NAMES = tuple(
-    f.name for f in dataclasses.fields(DeviceScene) if f.name != "meta"
+    f.name for f in dataclasses.fields(DeviceScene)
+    if f.name not in ("meta", "t8_card")
 )
 
 
@@ -512,6 +529,64 @@ def _bvh8t_layout(bvh, tri_pack, w: int = T8_WIDTH, lg: int = T8_LEAF):
     return node_blocks, meta, tri_blocks, maxd + 3
 
 
+def bvh8t_card_layout(node_blocks, meta, tri_blocks, w: int, lg: int):
+    """The bvh8t card layout of `_bvh8t_layout`'s tables (numpy).
+
+    - nodes (N8, 4) i32: per node, its first child record, n_int, n_leaf
+      and child_base (meta's field: internal child s is node child_base+s);
+    - children (C, 8) f32: the real children only, node by node in slot
+      order (internal slots 0..n_int-1, then leaf slots w-n_leaf..w-1):
+      box min3 max3, then as int32 bits the child's node id and 0 for an
+      internal child, or the group's first triangle row and its row count
+      for a leaf group;
+    - tris (R, 12) f32: the rows of every group that hold a triangle (any
+      of the nine vertex words nonzero), group by group in group order,
+      contiguous: p0, e1, e2, the id bits, two zero words.
+
+    Returns (nodes, children, tris)."""
+    fld = _t8_fld(w)
+    m = np.asarray(meta).astype(np.int64) & 0xFFFFFFFF
+    child_base, n_int = m[:, 0] >> fld, m[:, 0] & ((1 << fld) - 1)
+    leaf_base, n_leaf = m[:, 1] >> fld, m[:, 1] & ((1 << fld) - 1)
+    n_child = n_int + n_leaf
+    first = np.concatenate([[0], np.cumsum(n_child)[:-1]]).astype(np.int64)
+
+    # groups (G, lg, 10) from the (blocks x lg, 128) blocks of 12 groups
+    g_all = np.asarray(tri_blocks).reshape(-1, lg, 128)[:, :, :120]
+    g_all = g_all.reshape(-1, lg, G8_PER_BLOCK, 10).transpose(0, 2, 1, 3)
+    grp = g_all.reshape(-1, lg, 10)[:int(n_leaf.sum())]
+    used = np.any(grp[:, :, :9] != 0, axis=2)
+    rows = used.sum(axis=1)
+    row0 = np.concatenate([[0], np.cumsum(rows)[:-1]]).astype(np.int64)
+    tris = np.zeros((int(rows.sum()), T8_ROW_WORDS), F)
+    tris[:, :10] = grp[used]
+
+    node = np.repeat(np.arange(m.shape[0]), n_child)
+    k = np.arange(node.shape[0]) - first[node]
+    internal = k < n_int[node]
+    slot = np.where(internal, k, k + w - n_child[node])
+    blocks = np.asarray(node_blocks)
+    children = np.zeros((node.shape[0], 8), F)
+    children[:, :6] = blocks[(node // N8_PER_BLOCK * w + slot)[:, None],
+                             (node % N8_PER_BLOCK * 8)[:, None] + np.arange(6)]
+    q = leaf_base[node] + (w - 1 - slot)
+    link = np.where(internal, child_base[node] + slot,
+                    row0[np.where(internal, 0, q)])
+    count = np.where(internal, 0, rows[np.where(internal, 0, q)])
+    children[:, 6] = link.astype(np.int32).view(F)
+    children[:, 7] = count.astype(np.int32).view(F)
+    nodes = np.stack([first, n_int, n_leaf, child_base], axis=1)
+    return nodes.astype(np.int32), children, tris
+
+
+def bvh8t_card(node_blocks, meta, tri_blocks, w: int, lg: int,
+               device) -> Bvh8tCard:
+    """`bvh8t_card_layout` as tensors on `device`."""
+    return Bvh8tCard(*(torch.from_numpy(a).to(device) for a in
+                       bvh8t_card_layout(node_blocks, meta, tri_blocks, w,
+                                         lg)))
+
+
 def _accel_tables(tri_arrays):
     """BVH build + the slice's traversal layouts over one triangle soup.
 
@@ -845,6 +920,9 @@ def _to_device(leaves: dict, meta: SceneMeta, device) -> DeviceScene:
     return DeviceScene(
         **{k: torch.from_numpy(np.array(leaves[k], copy=True)).to(device)
            for k in LEAF_NAMES},
+        t8_card=bvh8t_card(leaves["t8_nodes"], leaves["t8_meta"],
+                           leaves["t8_tris"], meta.t8_width, meta.t8_leaf,
+                           device),
         meta=meta,
     )
 

@@ -108,8 +108,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _RAYS = [_P] * 5 + [_P] * 3   # origin, direction, t_min, t_max, active;
                               # t_out, best_out, counts (nullptr or (B, 3) i32)
 SIGNATURES = {
-    "tpu_rt_bvh8t_walk": [_P, _P, _P, *_RAYS, _I, _I, _I, _I, _P],
-    # nodes, tris, meta | n_rays, width, leaf_rows, early_exit | stream
+    "tpu_rt_bvh8t_walk": [_P, _P, _P, _P, *_RAYS, _I, _I, _I, _P],
+    # nodes, children, tris, next_ray | n_rays, width, early_exit | stream
     "tpu_rt_t8_brute": [_P, *_RAYS, _I, _I, _I, _P],
     # tris | n_rays, n_tri_blocks, leaf_rows | stream
     "tpu_rt_skip_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],

@@ -6,7 +6,9 @@ hit distance (t_max where there is no hit) and best the winning triangle in
 BVH order (-1 where there is none); inactive lanes return (t_max, -1).
 
 - On a CUDA tensor it launches csrc/bvh8t_walk.cu (the port of the TPU's
-  `_t8_kernel`) or raises. There is no fallback.
+  `_t8_kernel`, over the card layout `DeviceScene.t8_card` that
+  device/scene_buffers.py::bvh8t_card_layout builds from the JAX tables) or
+  raises. There is no fallback.
 - On a CPU tensor it runs `intersect_tris_plain`, a PyTorch port of the
   JAX package's XLA stack walk (`ops/traverse.py::_intersect_stack`) over
   the child-pair rows, which is what JAX itself runs on the CPU.
@@ -109,9 +111,10 @@ def intersect_tris_bvh8t(ds: DeviceScene, origin, direction, t_min, t_max,
                          active, early_exit: bool = False, counts=None):
     """Closest-hit (or any-hit with early_exit) over the scene's triangles.
 
-    CPU tensors take the plain walk; CUDA tensors launch the kernel, and
-    each launch adds one to `intersect_tris_bvh8t.launches[mode]`. `counts`
-    (card only) is launch_ray_kernel's."""
+    CPU tensors take the plain walk; CUDA tensors launch the kernel over
+    the scene's card layout (`ds.t8_card`), and each launch adds one to
+    `intersect_tris_bvh8t.launches[mode]`. `counts` (card only) is
+    launch_ray_kernel's."""
     dev = origin.device
     if dev.type == "cpu":
         return intersect_tris_plain(ds, origin, direction, t_min, t_max,
@@ -124,13 +127,22 @@ def intersect_tris_bvh8t(ds: DeviceScene, origin, direction, t_min, t_max,
     B = origin.shape[0]
     if B == 0 or ds.meta.n_tris == 0:
         return no_hits(t_max, B)
-    f32 = torch.float32
+    if ds.meta.t8_leaf > 32:  # the warp tests a group a row a lane
+        raise ValueError(f"bvh8t groups of {ds.meta.t8_leaf} rows exceed 32")
+    card = ds.t8_card
+    tables = [("t8_card.nodes", card.nodes, torch.int32),
+              ("t8_card.children", card.children, torch.float32),
+              ("t8_card.tris", card.tris, torch.float32)]
+    for name, x, _ in tables:
+        if x.data_ptr() % 16 or not x.is_contiguous():
+            raise ValueError(f"{name}: the kernel reads aligned 16-byte "
+                             "records of a contiguous tensor")
+    next_ray = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed there
     t, best = launch_ray_kernel(
         "tpu_rt_bvh8t_walk",
-        [("t8_nodes", ds.t8_nodes, f32), ("t8_tris", ds.t8_tris, f32),
-         ("t8_meta", ds.t8_meta, torch.int32)],
+        [*tables, ("next_ray", next_ray, torch.int32)],
         origin, direction, t_min, t_max, active,
-        [int(ds.meta.t8_width), int(ds.meta.t8_leaf), int(early_exit)],
+        [int(ds.meta.t8_width), int(early_exit)],
         counts)
     intersect_tris_bvh8t.launches["any_hit" if early_exit else "closest_hit"] += 1
     return t, best
