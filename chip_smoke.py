@@ -19,7 +19,7 @@ Phases (any failure exits nonzero and prints no result):
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel (launch counts reset
    just before, read just after). A copy of every ray batch the frame hands
-   the walk is kept for phase 8;
+   the walk is kept for phase 9;
 5. slice parity: two blocks of 4,096 Morton-order pixels (2 spp, depth 8),
    one of walls and floor and one mostly on the bunny, on cuda with the
    kernels against cpu with the plain versions;
@@ -27,7 +27,16 @@ Phases (any failure exits nonzero and prints no result):
    with bvh8t and then with each walk the JAX switch selects
    (TPU_RT_PALLAS_KERNEL, TPU_RT_BRUTE_GROUPS), its launch counts reset
    just before and read just after, and held against the bvh8t frame;
-7. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
+7. builtin scenes: the five beauty scenes with a sphere as full frames on
+   cuda at their builtin settings (out_of_focus_sphere 36 spp, 6x6
+   stratified; dielectric, metal, rough_metal and rough_dielectric 32 spp;
+   depth 8, 4 light samples), launch counts reset just before and read
+   just after each; on metal, the bvh8t walk on camera rays with
+   and without the sphere's cut of t_max, and on shadow rays with and
+   without the sphere-occluded lanes; one 1,024-pixel block on each
+   sphere at 2 spp on cuda against cpu; and the normals-only scenes
+   (sphere, cube, cube_orthographic) at 400x400 on cuda against cpu;
+8. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
    cost), P4 (bf16 slab), P2 (slab cost) and P1 (walk-visit ablation), at
    the scripts' counts (P1 at 4,096 visits, not the script's 200,000: its
    plain version takes about a millisecond a visit), their launch counts
@@ -36,7 +45,7 @@ Phases (any failure exits nonzero and prints no result):
    launch of its kernel on the same inputs (P3 also on small-id inputs;
    P2 and P1 in their outputs, stats and every visit's drained mask, and
    also on a second seeded input set whose drains vary);
-8. device times and the frame's traversal: every walk's kernel time alone
+9. device times and the frame's traversal: every walk's kernel time alone
    at the path's shape, from torch.profiler's kernel events; the frame's
    bounce-2 batches (closest-hit and its shadow rays) held against the plain
    walk and timed like the camera rays; then all of the frame's bvh8t
@@ -134,7 +143,26 @@ SWITCH_RAYS_RTOL = 1e-3
 SWITCH_MEAN_RTOL = 1e-3
 SWITCH_PIXEL_RTOL = 1e-5
 SWITCH_MIN_CLOSE = 0.99
-# the probes (phase 7): name, source, the Pallas probe it replaces. One SM
+# the builtin scenes with a sphere (phase 7), rendered at their builtin
+# settings: scene -> (the first pixel of its 32x32 block on the sphere, the
+# least share of the block's pixels within PARITY_PIXEL_RTOL of cpu).
+# Mirror and glass bounces carry a last-bit difference from bounce to
+# bounce; measured on the H100: 100% on every block (two chip runs).
+BEAUTY_SCENES = {
+    "out_of_focus_sphere": ((160, 224), 0.99),
+    "dielectric": ((192, 288), 0.98),
+    "metal": ((192, 288), 0.98),
+    "rough_metal": ((192, 288), 0.98),
+    "rough_dielectric": ((192, 288), 0.98),
+}
+SCENE_BLOCK = 1024
+SPHERE_CUT_ROUNDS = 3
+# the normals-only scenes: hit masks and normals (within AOV_ATOL) agree
+# on at least AOV_MIN_SHARE of the pixels
+AOV_SCENES = ("sphere", "cube", "cube_orthographic")
+AOV_ATOL = 1e-5
+AOV_MIN_SHARE = 0.999
+# the probes (phase 8): name, source, the Pallas probe it replaces. One SM
 # runs each, by design, so a bound's share of one SM is its card share
 # times the SMs.
 PROBE_KERNELS = (
@@ -556,6 +584,16 @@ def phase_full_frame(scene, settings, card: str, store: list) -> dict:
     return launches["bvh8t"]
 
 
+def parity(g, ng, c, nc) -> tuple:
+    """(share of pixels within PARITY_PIXEL_RTOL, relative mean difference,
+    relative rays_traced difference) of a cuda block against its cpu
+    block."""
+    close = float(np.all(np.abs(g - c) <= PARITY_PIXEL_RTOL * np.abs(c) + 1e-6,
+                         axis=-1).mean())
+    mean_rel = abs(float(g.mean()) - float(c.mean())) / abs(float(c.mean()))
+    return close, mean_rel, abs(ng - nc) / nc
+
+
 def phase_parity(scene, settings) -> None:
     from tpu_raytracing_torch.device import compile_scene
     from tpu_raytracing_torch.integrator.render import (
@@ -582,10 +620,7 @@ def phase_parity(scene, settings) -> None:
                 torch.ones(PARITY_PIXELS, dtype=torch.bool, device=dev))
             res[dev] = (r.cpu().numpy(), int(n), time.perf_counter() - t0)
         (g, ng, tg), (c, nc, tc) = res["cuda"], res["cpu"]
-        close = np.all(np.abs(g - c) <= PARITY_PIXEL_RTOL * np.abs(c) + 1e-6,
-                       axis=-1).mean()
-        mean_rel = abs(float(g.mean()) - float(c.mean())) / abs(float(c.mean()))
-        rays_rel = abs(ng - nc) / nc
+        close, mean_rel, rays_rel = parity(g, ng, c, nc)
         block_ok = (mean_rel <= PARITY_MEAN_RTOL and close >= min_close
                     and rays_rel <= PARITY_RAYS_RTOL and np.isfinite(g).all())
         ok = ok and block_ok
@@ -664,6 +699,194 @@ def phase_switch(scene, settings, card: str) -> dict:
         out[walk] = mine
     if not ok:
         raise AssertionError("a walk of the kernel switch failed its frame")
+    return out
+
+
+def sphere_cut_effect(ds, settings, card: str) -> tuple:
+    """What the sphere pass does to the bvh8t walk on a Cornell scene with a
+    sphere: the frame's camera rays with t_max cut at the sphere hit
+    against the same rays with the far clip, and their shadow rays with
+    the sphere-occluded lanes taken out against all of them. Each batch is
+    held against the plain walk, run once with counters, then timed in
+    SPHERE_CUT_ROUNDS round-robin rounds of 20 launches by CUDA events;
+    returns (ok, batch -> stats)."""
+    from tpu_raytracing_torch.integrator.render import _pixel_grid
+    from tpu_raytracing_torch.ops.camera_rays import generate_rays
+    from tpu_raytracing_torch.ops.light_sampling import sample_light
+    from tpu_raytracing_torch.ops.rng import SamplerConfig, make_stream
+    from tpu_raytracing_torch.ops.traverse import (
+        _intersect_spheres, intersect_scene,
+    )
+    from tpu_raytracing_torch.ops.traverse_bvh8t import intersect_tris_plain
+    from tpu_raytracing_torch.ops.traverse_kernels import WALKS
+
+    dev = ds.device
+    cfg = SamplerConfig.from_settings(settings.sampler, settings.seed)
+    px, py, _ = _pixel_grid(ds.meta.width, ds.meta.height)
+    px = torch.from_numpy(px.astype(np.int64)).to(dev)
+    py = torch.from_numpy(py.astype(np.int64)).to(dev)
+    stream = make_stream(px, py, 0)
+    o, d, _, _ = generate_rays(ds, px, py, cfg, stream,
+                               settings.samples_per_pixel, True)
+    n = o.shape[0]
+    full = lambda v: torch.full((n,), v, dtype=torch.float32, device=dev)  # noqa: E731
+    yes = torch.ones(n, dtype=torch.bool, device=dev)
+    t_min, far = full(ds.meta.near_clip), full(ds.meta.far_clip)
+    t_sph, _ = _intersect_spheres(ds, o, d, t_min, far)
+    t_cut = torch.where(torch.isfinite(t_sph), t_sph, far)
+    t_cam, prim = intersect_scene(ds, o, d, t_min, far)
+    ls, _ = sample_light(ds, 0, torch.where((prim >= 0)[:, None],
+                                            o + t_cam[:, None] * d, 0.0),
+                         cfg, stream)
+    so, sd = ls.origin.contiguous(), ls.direction.contiguous()
+    s_min, s_max = full(1e-3), ls.distance - 1e-3
+    s_sph, _ = _intersect_spheres(ds, so, sd, s_min, s_max)
+    lit = prim >= 0
+    batches = {
+        "camera rays, far clip": (o, d, t_min, far, yes, False),
+        "camera rays, t_max cut at the sphere": (o, d, t_min, t_cut, yes,
+                                                 False),
+        "shadow rays, all": (so, sd, s_min, s_max, lit, True),
+        "shadow rays, sphere-occluded lanes out": (
+            so, sd, s_min, s_max, lit & ~torch.isfinite(s_sph), True),
+    }
+    kernel = WALKS["bvh8t"]
+    out, ok = {}, True
+    for label, b in batches.items():
+        mode = "any_hit" if b[-1] else "closest_hit"
+        tp, bp = intersect_tris_plain(ds, *b)
+        tk, bk = kernel(ds, *b)
+        torch.cuda.synchronize()
+        b_ok, err, report = compare("bvh8t", mode, tk, bk, tp, bp)
+        ok = ok and b_ok
+        print(f"# sphere cut, {label}, bvh8t {mode} against the plain walk: "
+              f"{report}: {'ok' if b_ok else 'FAIL'}", flush=True)
+        counts = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+        kernel(ds, *b, counts=counts)
+        bound_ms, _, visits, boxes, tests = bound(ds, "bvh8t", counts, n)
+        out[label] = dict(live=int((counts[:, 0] > 0).sum()), ms=[],
+                          max_abs_err=err, visits_per_ray=visits,
+                          box_tests_per_ray=boxes, tri_tests_per_ray=tests,
+                          bound_ms=bound_ms)
+    for _ in range(SPHERE_CUT_ROUNDS):  # round-robin, so order biases none
+        for label, b in batches.items():
+            out[label]["ms"].append(time_ms(lambda: kernel(ds, *b), reps=20))
+    for label, st in out.items():
+        ms = float(np.median(st["ms"]))
+        st["ns_per_live_ray"] = ms * 1e6 / max(st["live"], 1)
+        print(f"# sphere cut, {label}: {st['live']} live of {n} rays, kernel "
+              f"{', '.join(f'{t:.4f}' for t in st['ms'])} ms (median "
+              f"{st['ns_per_live_ray']:.3f} ns a live ray) on {card}; per "
+              f"live ray {st['visits_per_ray']:.2f} visits, "
+              f"{st['box_tests_per_ray']:.2f} box tests, "
+              f"{st['tri_tests_per_ray']:.2f} triangle tests; bound "
+              f"{st['bound_ms']:.4f} ms", flush=True)
+    return ok, out
+
+
+def phase_builtin_scenes(card: str) -> dict:
+    """The builtin scenes this slice brings: the five beauty scenes with a
+    sphere as full frames on cuda at their builtin settings, one block of
+    each on cuda against cpu, and the three normals-only scenes' AOVs on
+    cuda against cpu. Returns scene -> bvh8t launch counts, plus the
+    sphere-cut measurement."""
+    from tpu_raytracing_torch.device import compile_scene
+    from tpu_raytracing_torch.integrator.render import (
+        StaticSettings, _pixel_grid, render, render_beauty_chunk,
+    )
+    from tpu_raytracing_torch.ops.rng import SamplerConfig
+    from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
+    from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    ok, out = True, {}
+    for name, ((x0, y0), min_close) in BEAUTY_SCENES.items():
+        ts = get_test_scene(name)
+        scene, s = ts.scene_func(), ts.settings_func()
+        ds = compile_scene(scene)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = render(ds, s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()["bvh8t"]
+        img = res.beauty
+        mean = float(img.mean())
+        cornell = ds.meta.n_tris > 0
+        frame_ok = (bool(np.isfinite(img).all()) and mean > 0.0
+                    and (min(launches.values()) > 0 if cornell
+                         else not any(launches.values())))
+        ok = ok and frame_ok
+        out[name] = launches
+        print(f"# scene {name}: {img.shape[1]}x{img.shape[0]}, "
+              f"{s.samples_per_pixel} spp, depth {s.max_ray_depth}, "
+              f"{s.light_sample_count} light samples: {wall:.3f} s wall, "
+              f"{res.rays_traced} rays, "
+              f"{res.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; mean "
+              f"{mean:.6g}; bvh8t launches {launches}"
+              f"{'' if cornell else ' (no triangles: no walk, by design)'}: "
+              f"{'ok' if frame_ok else 'FAIL'}", flush=True)
+        if name == "metal":
+            cut_ok, out["sphere_cut"] = sphere_cut_effect(ds, s, card)
+            ok = ok and cut_ok
+
+        # one 1,024-pixel block on the sphere, cuda against cpu, at 2 spp
+        s2 = dataclasses.replace(s, samples_per_pixel=2)
+        cfg = SamplerConfig.from_settings(s2.sampler, s2.seed)
+        st = StaticSettings.from_settings(s2)
+        px, py, _ = _pixel_grid(ds.meta.width, ds.meta.height)
+        start = int(np.nonzero((px == x0) & (py == y0))[0][0])
+        sel = slice(start, start + SCENE_BLOCK)
+        blk = {}
+        for dev, dsd in (("cuda", ds), ("cpu", compile_scene(scene, "cpu"))):
+            t0 = time.perf_counter()
+            r, n = render_beauty_chunk(
+                dsd, cfg, st,
+                torch.from_numpy(px[sel].astype(np.int64)).to(dev),
+                torch.from_numpy(py[sel].astype(np.int64)).to(dev),
+                torch.ones(SCENE_BLOCK, dtype=torch.bool, device=dev))
+            blk[dev] = (r.cpu().numpy(), int(n), time.perf_counter() - t0)
+        (g, ng, tg), (c, nc, tc) = blk["cuda"], blk["cpu"]
+        close, mean_rel, rays_rel = parity(g, ng, c, nc)
+        block_ok = (mean_rel <= PARITY_MEAN_RTOL and close >= min_close
+                    and rays_rel <= PARITY_RAYS_RTOL
+                    and bool(np.isfinite(g).all()))
+        ok = ok and block_ok
+        print(f"# scene {name} block ({SCENE_BLOCK} pixels from ({x0}, {y0}), "
+              f"2 spp), cuda vs cpu: mean {g.mean():.6g} vs {c.mean():.6g} "
+              f"(rel {mean_rel:.2e}, limit {PARITY_MEAN_RTOL}); "
+              f"{close * 100:.2f}% of pixels within rtol {PARITY_PIXEL_RTOL} "
+              f"(limit {min_close * 100:.0f}%); rays {ng} vs {nc} (rel "
+              f"{rays_rel:.2e}, limit {PARITY_RAYS_RTOL}); cuda {tg:.2f} s, "
+              f"cpu {tc:.2f} s: {'ok' if block_ok else 'FAIL'}", flush=True)
+
+    for name in AOV_SCENES:
+        ts = get_test_scene(name)
+        scene, s = ts.scene_func(), ts.settings_func()
+        res = {}
+        for dev in ("cuda", "cpu"):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res[dev] = (render(scene, s, dev).normals,
+                        time.perf_counter() - t0, launch_counts()["bvh8t"])
+        (g, tg, launches), (c, tc, _) = res["cuda"], res["cpu"]
+        hit_g, hit_c = np.any(g != 0, axis=-1), np.any(c != 0, axis=-1)
+        mask_same = float((hit_g == hit_c).mean())
+        close = float(np.all(np.abs(g - c) <= AOV_ATOL, axis=-1).mean())
+        aov_ok = (g.shape == (400, 400, 3) and bool(np.isfinite(g).all())
+                  and mask_same >= AOV_MIN_SHARE and close >= AOV_MIN_SHARE
+                  and 0 < hit_c.mean() < 1)
+        ok = ok and aov_ok
+        print(f"# scene {name} normals {g.shape[1]}x{g.shape[0]}, cuda vs "
+              f"cpu: hit masks equal on {mask_same * 100:.4f}%, normals within "
+              f"{AOV_ATOL} on {close * 100:.4f}% of pixels (limit "
+              f"{AOV_MIN_SHARE * 100:.1f}%), {hit_c.mean() * 100:.2f}% hit; "
+              f"cuda {tg:.3f} s on {card}, cpu {tc:.3f} s (scene compile "
+              f"included); bvh8t launches "
+              f"{launches}: {'ok' if aov_ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("a builtin scene failed its frame or parity")
     return out
 
 
@@ -1041,13 +1264,14 @@ def phase_device(ds, settings, stats: dict, frame: list) -> dict:
 
 
 def kernel_entries(stats: dict, frame: dict, switch: dict,
-                   traversal: dict) -> list:
+                   traversal: dict, scenes: dict) -> list:
     """The {"kernels": [...]} entries. bvh8t's launches are the full
     frame's (phase 4), the other walks' their switch frame's (phase 6, both
     modes); times and bounds are at the path's shape of the entry's mode
     (closest-hit for the walks, whose any-hit numbers ride along). bvh8t's
     entries also carry their mode's bounce-2 batch and the frame's
-    traversal in all (phase 8)."""
+    traversal in all (phase 9), and their launches in each builtin scene's
+    frame (phase 7)."""
     kernels = []
     for kname, walk, modes, source, line in KERNELS:
         main_mode = modes[0]
@@ -1062,6 +1286,9 @@ def kernel_entries(stats: dict, frame: dict, switch: dict,
         if walk == "bvh8t":
             entry["bounce2"] = traversal["bounce2_" + main_mode]
             entry["frame_traversal"] = traversal["frame_" + main_mode]
+            entry["scene_launches"] = {
+                name: c[main_mode] for name, c in scenes.items()
+                if name in BEAUTY_SCENES}
         if len(modes) > 1:
             entry["launches_by_mode"] = switch[walk]
             entry["any_hit"] = stats[walk, "any_hit"]
@@ -1111,6 +1338,7 @@ def main() -> int:
                                                 batches)),
         ("slice parity", lambda: phase_parity(scene, settings)),
         ("kernel switch", lambda: phase_switch(scene, settings, card)),
+        ("builtin scenes", lambda: phase_builtin_scenes(card)),
         ("probes", lambda: phase_probes(card)),
         ("device times", lambda: phase_device(
             ds, settings, results["kernel vs plain"], batches)),
@@ -1128,7 +1356,8 @@ def main() -> int:
         return 1
     kernels = kernel_entries(results["kernel vs plain"],
                              results["full frame"], results["kernel switch"],
-                             results["device times"])
+                             results["device times"],
+                             results["builtin scenes"])
     kernels += results["probes"]
     print(json.dumps({"kernels": kernels}))
     print(card)

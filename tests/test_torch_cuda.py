@@ -217,6 +217,110 @@ def test_render_on_card_matches_cpu(cuda_scene):
     np.testing.assert_allclose(g.beauty.mean(), c.beauty.mean(), rtol=0.01)
 
 
+@pytest.fixture(scope="module")
+def metal_scenes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the walk is a CUDA kernel")
+    scene = get_test_scene("metal").scene_func()
+    return compile_scene(scene, "cuda"), compile_scene(scene, "cpu")
+
+
+def _sphere_rays(n, seed, early_exit):
+    """Half random rays inside the Cornell box, half aimed at its sphere
+    (center (0, 0, 0.75), radius 0.5) from around it, grazing ones
+    included; t ranges and a mask of active lanes."""
+    g = np.random.default_rng(seed)
+    c = np.array([0.0, 0.0, 0.75])
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    m = n // 2
+    o_rand = g.uniform(-0.9, 0.9, (m, 3)) + c
+    d_rand = unit(g.normal(size=(m, 3)))
+    o_aim = c + unit(g.normal(size=(n - m, 3))) * g.uniform(0.6, 1.2,
+                                                             (n - m, 1))
+    target = c + unit(g.normal(size=(n - m, 3))) * 0.5 * g.uniform(
+        0.0, 1.02, (n - m, 1))
+    o = np.concatenate([o_rand, o_aim]).astype(np.float32)
+    d = np.concatenate([d_rand, unit(target - o_aim)]).astype(np.float32)
+    tmin = np.full(n, 1e-4, np.float32)
+    tmax = np.full(n, 1.2 if early_exit else np.inf, np.float32)
+    act = np.arange(n) % 7 != 3
+    return o, d, tmin, tmax, act
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+def test_intersect_scene_spheres_cuda_vs_cpu(metal_scenes, early_exit):
+    """The sphere pass, then the bvh8t walk with the sphere hit as t_max
+    (any-hit lanes the sphere occludes skip the walk): winners exact, spheres
+    encoded n_tris + index, t within rtol 1e-5."""
+    from tpu_raytracing_torch.ops.traverse import intersect_scene
+
+    gds, cds = metal_scenes
+    rays = _sphere_rays(16384, 23, early_exit)
+    res = {}
+    reset_launch_counts()
+    for ds in (gds, cds):
+        args = [torch.from_numpy(x).to(ds.device) for x in rays]
+        t, p = intersect_scene(ds, *args[:4], early_exit=early_exit,
+                               active=args[4])
+        res[ds.device.type] = (t.cpu().numpy(), p.cpu().numpy())
+    mode = "any_hit" if early_exit else "closest_hit"
+    assert intersect_tris_bvh8t.launches[mode] == 1
+    (tg, pg), (tc, pc) = res["cuda"], res["cpu"]
+    n_tris = gds.meta.n_tris
+    if early_exit:
+        np.testing.assert_array_equal(pg >= 0, pc >= 0)
+        np.testing.assert_array_equal(pg >= n_tris, pc >= n_tris)
+    else:
+        np.testing.assert_array_equal(pg, pc)
+        hit = pc >= 0
+        np.testing.assert_allclose(tg[hit], tc[hit], rtol=1e-5)
+    assert np.all(pg[~rays[4]] == -1)
+    assert 0.2 < (pg == n_tris).mean() < 0.8 and (pg[rays[4]] < n_tris).any()
+
+
+def test_dielectric_block_cuda_vs_cpu():
+    """A 256-pixel block on the glass sphere at 2 spp (the block of
+    tests/test_torch_render_materials.py), on cuda through the kernels and
+    on cpu: rays_traced within 0.5%, the mean within 1%, and at least 90% of
+    pixels within rtol 1e-3 (chip_smoke.py phase 7 states the share it
+    measures on its 1,024-pixel blocks)."""
+    from tpu_raytracing_torch.integrator.render import (
+        StaticSettings, _pixel_grid, render_beauty_chunk,
+    )
+    from tpu_raytracing_torch.ops.rng import SamplerConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the walk is a CUDA kernel")
+    ts = get_test_scene("dielectric")
+    scene = ts.scene_func()
+    s = dataclasses.replace(ts.settings_func(), samples_per_pixel=2)
+    cfg = SamplerConfig.from_settings(s.sampler, s.seed)
+    st = StaticSettings.from_settings(s)
+    px, py, _ = _pixel_grid(500, 500)
+    start = int(np.nonzero((px == 192) & (py == 288))[0][0])
+    sel = slice(start, start + 256)
+    res = {}
+    reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        r, n = render_beauty_chunk(
+            compile_scene(scene, dev), cfg, st,
+            torch.from_numpy(px[sel].astype(np.int64)).to(dev),
+            torch.from_numpy(py[sel].astype(np.int64)).to(dev),
+            torch.ones(256, dtype=torch.bool, device=dev))
+        res[dev] = (r.cpu().numpy(), int(n))
+    assert min(intersect_tris_bvh8t.launches.values()) > 0
+    (g, ng), (c, nc) = res["cuda"], res["cpu"]
+    assert np.isfinite(g).all() and c.mean() > 0
+    assert abs(ng - nc) <= 0.005 * nc
+    np.testing.assert_allclose(g.mean(axis=0), c.mean(axis=0), rtol=0.01)
+    close = np.all(np.abs(g - c) <= 1e-3 * np.abs(c) + 1e-6, axis=-1)
+    assert close.mean() >= 0.90, close.mean()
+
+
 # the probes: the plain versions run op by op, so they are compared at a
 # small count, one of fori's compiled trip counts (chip_smoke.py compares
 # them at the scripts' counts)

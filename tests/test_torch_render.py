@@ -120,7 +120,7 @@ def test_render_cpu_never_launches():
 
 
 def test_render_rejects_outside_slice(scene):
-    s = RaytracerSettings(outputs=AovFlags.BEAUTY | AovFlags.NORMALS)
+    s = RaytracerSettings(outputs=AovFlags.BEAUTY | AovFlags.MIP_LEVEL)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         render(scene, s, "cpu")
     if not torch.cuda.is_available():
@@ -177,7 +177,8 @@ def test_pixel_grid_matches_jax():
 
 def test_port_never_imports_jax():
     """With jax and the JAX package made unimportable, the port imports,
-    compiles the bunny and renders on the CPU."""
+    compiles the bunny and the metal scene (a mirror sphere) and renders
+    both on the CPU."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -195,6 +196,11 @@ def test_port_never_imports_jax():
         "s = RaytracerSettings(samples_per_pixel=1, max_ray_depth=2)\n"
         "out = R.render(sc, s, 'cpu')\n"
         "assert np.isfinite(out.beauty).all()\n"
+        "sc = get_test_scene('metal').scene_func()\n"
+        "assert compile_scene(sc, 'cpu').meta.n_spheres == 1\n"
+        "sc.camera = sc.camera.with_resolution(4, 4)\n"
+        "out = R.render(sc, s, 'cpu')\n"
+        "assert np.isfinite(out.beauty).all() and out.beauty.mean() > 0\n"
         "assert not any(m.split('.')[0] in ('jax', 'tpu_raytracing') for m, "
         "v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"

@@ -21,7 +21,9 @@ from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module", params=["coated_diffuse_bunny", "cube"])
+@pytest.fixture(scope="module", params=[
+    "coated_diffuse_bunny", "cube", "dielectric", "rough_metal",
+    "out_of_focus_sphere"])
 def both(request):
     return (jax_compile_scene(jax_test_scene(request.param).scene_func()),
             compile_scene(get_test_scene(request.param).scene_func(), "cpu"))
@@ -102,17 +104,73 @@ def test_triangle_rows_pad_with_zeros(both, table):
     np.testing.assert_array_equal(np.sort(ids), np.arange(tds.meta.n_tris))
 
 
+def _outside_scene(case, tmod, mmod, geom):
+    """A scene outside the slice, built from one package's own modules
+    (scene.test_scenes, materials, geometry): the cube with
+    an image or a mix texture for albedo, or the Cornell box with an
+    emissive quad (an area light)."""
+    if case == "emissive_quad":
+        sb = tmod.cornell_box()
+        quad = tmod.make_plane(
+            tmod.v3(-0.25, -0.25, 1.49), tmod.v3(0.25, -0.25, 1.49),
+            tmod.v3(0.25, 0.25, 1.49), tmod.v3(-0.25, 0.25, 1.49),
+            tmod.v3(0, 0, 1))
+        white = sb.add_constant_texture(tmod.v4(1, 1, 1, 1))
+        mat = sb.add_material(mmod.Diffuse(albedo=white))
+        sb.add_shape_with_transform(
+            geom.TriangleMesh(quad), mat, geom.Transform.identity(),
+            area_light_radiance=np.array([5.0, 5.0, 5.0], np.float32))
+        sb.add_camera(tmod.Camera.lookat_camera_perspective(
+            tmod.v3(0, 3.4, 0.4), tmod.v3(0, 0, 0.75), tmod.v3(0, 0, 1),
+            False, np.deg2rad(37.8), 64, 64))
+        return sb.build()
+    sb = tmod.SceneBuilder()
+    a = sb.add_constant_texture(tmod.v4(1, 0, 0, 1))
+    if case == "image_texture":
+        img = sb.add_image(mmod.Image(np.full((4, 4, 3), 0.5, np.float32)))
+        tex = sb.add_texture(mmod.ImageTexture(image=img))
+    else:
+        b = sb.add_constant_texture(tmod.v4(0, 1, 0, 1))
+        c = sb.add_constant_texture(tmod.v4(0.5, 0.5, 0.5, 1))
+        tex = sb.add_texture(mmod.MixTexture(a=a, b=b, c=c))
+    mat = sb.add_material(mmod.Diffuse(albedo=tex))
+    sb.add_shape_at_position(geom.TriangleMesh(tmod.make_cube(1.0)), mat,
+                             tmod.v3(0, 0, -3))
+    sb.add_camera(tmod.Camera.lookat_camera_perspective(
+        tmod.v3(1, 0.75, -1), tmod.v3(0, 0, -3), tmod.v3(0, 1, 0), False,
+        np.deg2rad(45.0), 64, 64))
+    return sb.build()
+
+
+def _builtin(name):
+    return (get_test_scene(name).scene_func(),
+            jax_test_scene(name).scene_func())
+
+
+def _built(case):
+    import tpu_raytracing.geometry as JG
+    import tpu_raytracing.materials as JM
+    import tpu_raytracing.scene.test_scenes as JS
+    import tpu_raytracing_torch.geometry as TG
+    import tpu_raytracing_torch.materials as TM
+    import tpu_raytracing_torch.scene.test_scenes as TS
+
+    return _outside_scene(case, TS, TM, TG), _outside_scene(case, JS, JM, JG)
+
+
 @pytest.mark.parametrize("name", [
-    "sphere",                 # analytic spheres
+    "image_texture",          # image texture
+    "mix_texture",            # mix texture
     "checkered_plane",        # checker texture
     "environment_light",      # environment light
-    "dielectric",             # dielectric BSDF
-    "metal",                  # conductor BSDF
+    "emissive_quad",          # area light
 ])
 def test_outside_slice_raises(name):
+    builtin = name in ("checkered_plane", "environment_light")
+    port_scene, jax_scene = _builtin(name) if builtin else _built(name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compile_scene(get_test_scene(name).scene_func(), "cpu")
-    jds = jax_compile_scene(jax_test_scene(name).scene_func())
+        compile_scene(port_scene, "cpu")
+    jds = jax_compile_scene(jax_scene)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         from_jax_leaves(_jax_leaves(jds), dataclasses.asdict(jds.meta), "cpu")
 

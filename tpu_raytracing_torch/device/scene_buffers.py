@@ -1,12 +1,13 @@
 """Scene -> torch tensors on one device ("compile" the scene for the port).
 
 Counterpart of tpu_raytracing/device/scene_buffers.py, restricted to the
-leaves the beauty path reads. The layout functions are the JAX package's
+leaves the ported slice reads. The layout functions are the JAX package's
 numpy code, ported line for line so that every table is byte-identical to
 the JAX scene's leaf of the same name (tests/test_torch_scene.py): the
 traversal tables of every walk the JAX kernel switch selects (bvh8t,
-skip-link, child-pair, BVH4 and its row records), the shading rows,
-and the material, texture, light and camera tables.
+skip-link, child-pair, BVH4 and its row records), the shading rows, the
+object-space sphere tables, and the material, texture, light and camera
+tables.
 
 The scene description it reads (scene, geometry, accel, materials,
 lights) is the port's own copy of the JAX package's host modules; the port
@@ -28,7 +29,10 @@ from ..accel import build_bvh
 from ..geometry import Sphere, Transform, TriangleMesh
 from ..geometry.matrix import apply_point as _np_apply_point
 from ..lights import DirectionLight, PointLight
-from ..materials import CoatedDiffuse, ConstantTexture, Diffuse
+from ..materials import (
+    CoatedDiffuse, ConstantTexture, Diffuse, RoughConductor, RoughDielectric,
+    SmoothConductor, SmoothDielectric,
+)
 from ..scene import BasicPrimitive, Scene
 from ..scene.camera import (
     Orthographic, PinholePerspective, ThinLensPerspective,
@@ -87,6 +91,7 @@ class SceneMeta:
     SceneMeta, same field names and values)."""
 
     n_tris: int
+    n_spheres: int
     light_kinds: Tuple[int, ...]
     mat_kinds_present: Tuple[int, ...]
     tex_kinds_present: Tuple[int, ...]
@@ -137,6 +142,15 @@ class DeviceScene:
     t8_meta: torch.Tensor        # (N8, 2) i32 child/leaf base + counts
     t8_tris: torch.Tensor        # (Gb*LG, 128) f32 bvh8t tri groups
     tri_shade: torch.Tensor      # (T, 32) f32 shading rows
+    sph_center: torch.Tensor     # (S8, 3) f32 object-space centers
+    sph_radius: torch.Tensor     # (S8,) f32, 0 on padding
+    sph_o2w: torch.Tensor        # (S8, 4, 4) f32 object to world
+    sph_w2o: torch.Tensor        # (S8, 4, 4) f32 world to object
+    sph_mat: torch.Tensor        # (S8,) i32
+    sph_light: torch.Tensor      # (S8,) i32, -1 = not an emitter
+    mat_kind: torch.Tensor       # (M,) i32
+    mat_tex: torch.Tensor        # (M, 5) i32 texture ids, -1 = unset
+    mat_remap: torch.Tensor      # (M,) bool remap_roughness
     mat_pack: torch.Tensor       # (M, 8) i32 kind, tex0..4, remap
     mat_tex_rows: torch.Tensor   # (M, 80) f32 the 5 slot texture rows
     tex_pack: torch.Tensor       # (X, 16) f32 texture rows
@@ -667,7 +681,8 @@ def _normal_matrix(t: Transform) -> np.ndarray:
 
 
 def _triangle_soup(scene: Scene):
-    """World-space triangle arrays of every mesh (compile_scene's loop)."""
+    """World-space triangle arrays of every mesh (compile_scene's loop;
+    spheres are left to `_sphere_tables`)."""
     prims = _flatten_primitives(scene)
     occ_count: dict = {}
     for _, prim_idx, _ in prims:
@@ -678,7 +693,7 @@ def _triangle_soup(scene: Scene):
         light_id = prim.area_light if prim.area_light is not None else -1
         shape = prim.shape
         if isinstance(shape, Sphere):
-            raise _unsupported("an analytic sphere", "Next: spheres")
+            continue
         if not isinstance(shape, TriangleMesh):
             raise TypeError(f"unknown shape: {shape}")
         if (occ_count[prim_idx] > 1 and prim.area_light is None
@@ -725,6 +740,39 @@ def _triangle_soup(scene: Scene):
     )
 
 
+def _sphere_tables(scene: Scene):
+    """(tables, n_spheres): the object-space sphere tables, padded to a
+    multiple of 8 with radius 0, identity matrices, material 0 and light -1
+    (JAX compile_scene's spheres). No sphere is an emitter: an area light
+    on one raises."""
+    sph = []
+    for prim, _, t in _flatten_primitives(scene):
+        if not isinstance(prim.shape, Sphere):
+            continue
+        if prim.area_light is not None:
+            raise _unsupported("an area light on a sphere",
+                               "Next: area and environment lights")
+        mat_id = prim.material if prim.material is not None else 0
+        sph.append((prim.shape, t, mat_id))
+    n_spheres = len(sph)
+    s_pad = _round_up(n_spheres, 8) if n_spheres else 0
+    tab = dict(
+        sph_center=np.zeros((s_pad, 3), F),
+        sph_radius=np.zeros(s_pad, F),
+        sph_o2w=np.tile(np.eye(4, dtype=F), (s_pad, 1, 1)),
+        sph_w2o=np.tile(np.eye(4, dtype=F), (s_pad, 1, 1)),
+        sph_mat=np.zeros(s_pad, np.int32),
+        sph_light=np.full(s_pad, -1, np.int32),
+    )
+    for i, (shape, t, mat_id) in enumerate(sph):
+        tab["sph_center"][i] = shape.center
+        tab["sph_radius"][i] = shape.radius
+        tab["sph_o2w"][i] = t.forward
+        tab["sph_w2o"][i] = t.inverse
+        tab["sph_mat"][i] = mat_id
+    return tab, n_spheres
+
+
 def _material_tables(scene: Scene):
     n_mats = max(1, len(scene.materials))
     mat_kind = np.zeros(n_mats, np.int32)
@@ -735,6 +783,24 @@ def _material_tables(scene: Scene):
         if isinstance(m, Diffuse):
             mat_kind[i] = MAT_DIFFUSE
             mat_tex[i, 0] = m.albedo
+        elif isinstance(m, SmoothDielectric):
+            mat_kind[i] = MAT_SMOOTH_DIELECTRIC
+            mat_tex[i, 0] = m.eta
+        elif isinstance(m, SmoothConductor):
+            mat_kind[i] = MAT_SMOOTH_CONDUCTOR
+            mat_tex[i, 0] = m.eta
+            mat_tex[i, 1] = m.kappa
+        elif isinstance(m, RoughDielectric):
+            mat_kind[i] = MAT_ROUGH_DIELECTRIC
+            mat_tex[i, 0] = m.eta
+            mat_tex[i, 2] = m.roughness
+            mat_remap[i] = m.remap_roughness
+        elif isinstance(m, RoughConductor):
+            mat_kind[i] = MAT_ROUGH_CONDUCTOR
+            mat_tex[i, 0] = m.eta
+            mat_tex[i, 1] = m.kappa
+            mat_tex[i, 2] = m.roughness
+            mat_remap[i] = m.remap_roughness
         elif isinstance(m, CoatedDiffuse):
             mat_kind[i] = MAT_COATED_DIFFUSE
             mat_tex[i, 0] = m.diffuse_albedo
@@ -747,10 +813,7 @@ def _material_tables(scene: Scene):
             mat_tex[i, 4] = m.coat_albedo
             mat_remap[i] = m.dielectric_remap_roughness
         else:
-            raise _unsupported(
-                f"material {type(m).__name__}",
-                "Next: conductor and dielectric BSDFs",
-            )
+            raise TypeError(f"unknown material: {m}")
         kinds_present.add(int(mat_kind[i]))
     if not scene.materials:
         kinds_present.add(MAT_DIFFUSE)
@@ -759,7 +822,8 @@ def _material_tables(scene: Scene):
 
 def _texture_tables(scene: Scene, mat_tex: np.ndarray):
     if scene.images:
-        raise _unsupported("an image texture", "Next: image textures")
+        raise _unsupported("an image texture",
+                           "Next: image, checker, scale and mix textures")
     n_tex = max(1, len(scene.textures))
     tex_kind = np.full(n_tex, TEX_CONSTANT, np.int32)
     tex_pack = np.zeros((n_tex, 16), F)
@@ -841,12 +905,22 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
     """Build the slice's tables for `scene` on `device` (the card unless
     the caller asks for "cpu"; without a card, cuda raises)."""
     acc = _accel_tables(_triangle_soup(scene))
+    sph, n_spheres = _sphere_tables(scene)
 
     lo = np.full(3, np.inf)
     hi = np.full(3, -np.inf)
     if acc["n_tris"]:
         lo = np.minimum(lo, acc["root_min"])
         hi = np.maximum(hi, acc["root_max"])
+    for i in range(n_spheres):
+        c, r = sph["sph_center"][i], sph["sph_radius"][i]
+        corners = c[None, :] + r * np.array(
+            [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+             for sz in (-1, 1)], F)
+        m = sph["sph_o2w"][i]
+        wc = corners @ m[:3, :3].T + m[:3, 3]
+        lo = np.minimum(lo, wc.min(axis=0))
+        hi = np.maximum(hi, wc.max(axis=0))
     if not np.all(np.isfinite(lo)):
         lo, hi = np.zeros(3), np.zeros(3)
     bounds_center = ((lo + hi) * 0.5).astype(F)
@@ -875,6 +949,7 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
 
     meta = SceneMeta(
         n_tris=acc["n_tris"],
+        n_spheres=n_spheres,
         light_kinds=light_kinds,
         mat_kinds_present=kinds_present,
         tex_kinds_present=tex_kinds,
@@ -903,6 +978,7 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
             "bvh4_recs_pk", "bvh4_rows", "tri_rows")},
         t8_nodes=acc["t8_nodes"], t8_meta=acc["t8_meta"],
         t8_tris=acc["t8_tris"], tri_shade=_tri_shade_rows(acc["tri"]),
+        **sph, mat_kind=mat_kind, mat_tex=mat_tex, mat_remap=mat_remap,
         mat_pack=mat_pack, mat_tex_rows=mat_tex_rows, tex_pack=tex_pack,
         light_kind=light_kind, light_va=light_va, light_vb=light_vb,
         cam_raster_to_camera=cam.raster_to_camera.forward,
@@ -933,8 +1009,6 @@ def from_jax_leaves(leaves: dict, meta: dict, device) -> DeviceScene:
     leaves: JAX DeviceScene field name -> numpy array (np.asarray of the
     leaf); meta: dataclasses.asdict of the JAX SceneMeta. Scenes outside
     the slice raise NotImplementedError as compile_scene does."""
-    if meta["n_spheres"]:
-        raise _unsupported("an analytic sphere", "Next: spheres")
     if meta["instances"]:
         raise _unsupported("an instanced mesh", "Next: instances")
     if meta["t8_chunk_meta"]:
@@ -950,9 +1024,6 @@ def from_jax_leaves(leaves: dict, meta: dict, device) -> DeviceScene:
     if set(meta["tex_kinds_present"]) - {TEX_CONSTANT}:
         raise _unsupported("a non-constant texture",
                            "Next: image, checker, scale and mix textures")
-    if set(meta["mat_kinds_present"]) - {MAT_DIFFUSE, MAT_COATED_DIFFUSE}:
-        raise _unsupported("a conductor or dielectric material",
-                           "Next: conductor and dielectric BSDFs")
     fields = {f.name for f in dataclasses.fields(SceneMeta)}
     m = SceneMeta(**{k: _freeze(v) for k, v in meta.items() if k in fields})
     return _to_device({k: leaves[k] for k in LEAF_NAMES}, m, device)

@@ -14,6 +14,10 @@ path's output, tests/test_trace_modes.py). Semantics:
 
 `rays_traced` counts as JAX does: lanes alive at the top of each bounce
 plus the shadow rays actually walked.
+
+First-hit AOVs (normals, albedo, uv) come from one pass of unjittered
+camera rays before the beauty pass, as in JAX; the mip-level AOV needs the
+image textures and raises.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import numpy as np
 import torch
 
 from ..device.scene_buffers import (
-    DeviceScene, LIGHT_DIRECTION, LIGHT_POINT, compile_scene,
+    DeviceScene, LIGHT_DIRECTION, LIGHT_POINT, MAT_COATED_DIFFUSE, MAT_DIFFUSE,
+    compile_scene,
 )
 from ..ops import bsdf as B
 from ..ops.bsdf_dispatch import bsdf_eval, bsdf_sample
@@ -34,7 +39,7 @@ from ..ops.camera_rays import generate_rays
 from ..ops.light_sampling import light_emitted_radiance, sample_light
 from ..ops.linalg import dot, make_orthonormal_basis
 from ..ops.rng import SamplerConfig, make_stream
-from ..ops.textures import EvalCtx, eval_ctx_from_differentials
+from ..ops.textures import EvalCtx, eval_ctx_from_differentials, eval_texture
 from ..ops.traverse import hit_details, intersect_scene, occluded
 from ..settings import AovFlags, RaytracerSettings, RenderOutput
 
@@ -238,6 +243,42 @@ def render_beauty_chunk(ds: DeviceScene, cfg: SamplerConfig,
     return total / st.samples_per_pixel, rays
 
 
+def render_aov_chunk(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
+                     px, py, albedo: bool = True):
+    """First-hit AOVs of one pixel chunk from unjittered camera rays:
+    (normals (B, 3), albedo (B, 3), uv (B, 2)), zero where nothing is hit.
+    Albedo is the albedo texture of diffuse and coated materials and white
+    for the others (materials.rs get_albedo); with `albedo` false it is
+    zero and no texture is evaluated."""
+    stream = make_stream(px, py, 0)
+    ray_o, ray_d, diff, stream = generate_rays(
+        ds, px, py, cfg, stream, st.samples_per_pixel, jitter=False)
+    B_ = px.shape[0]
+    dev = ray_o.device
+    t, prim = intersect_scene(
+        ds, ray_o, ray_d,
+        torch.full((B_,), ds.meta.near_clip, dtype=torch.float32, device=dev),
+        torch.full((B_,), ds.meta.far_clip, dtype=torch.float32, device=dev))
+    hit = hit_details(ds, ray_o, ray_d, t, prim)
+    h1 = hit.hit[:, None]
+    normals = torch.where(h1, hit.normal, 0.0)
+    uv = torch.where(h1, hit.uv, 0.0)
+    if not albedo:
+        return normals, torch.zeros_like(normals), uv
+    ctx = eval_ctx_from_differentials(hit, ray_o, ray_d, diff)
+    ctx = EvalCtx(uv=hit.uv, **{
+        k: torch.where(hit.hit, getattr(ctx, k), 0.0)
+        for k in ("dudx", "dudy", "dvdx", "dvdy")})
+    mat = torch.clamp(hit.material, min=0).long()
+    kind = ds.mat_kind[mat]
+    sk = ds.meta.slot_kinds
+    sampled = eval_texture(ds, ds.mat_tex[mat, 0], ctx,
+                           kinds=sk[0] if sk else None)[:, :3]
+    has_albedo = (kind == MAT_DIFFUSE) | (kind == MAT_COATED_DIFFUSE)
+    alb = torch.where(has_albedo[:, None], sampled, 1.0)
+    return normals, torch.where(h1, alb, 0.0), uv
+
+
 def _interleave_bits(v: np.ndarray) -> np.ndarray:
     v = v.astype(np.uint64)
     v = (v | (v << 16)) & np.uint64(0x0000FFFF0000FFFF)
@@ -282,14 +323,16 @@ def _run_chunked(fn, px, py, device, chunk):
 
 def render(scene_or_device, settings: RaytracerSettings, device="cuda",
            chunk_pixels: int | None = None) -> RenderOutput:
-    """Full-frame beauty render on `device`: the card unless the caller
-    asks for "cpu"; without a card, a cuda render raises."""
+    """Full-frame render on `device`: the card unless the caller asks for
+    "cpu"; without a card, a cuda render raises. The first-hit AOVs that
+    `settings.outputs` asks for come first, then the beauty pass."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(device='cuda'): no CUDA device")
-    if settings.outputs & AovFlags.FIRST_HIT_AOVS:
+    if settings.outputs & AovFlags.MIP_LEVEL:
         raise NotImplementedError(
-            "AOV outputs are outside the ported slice (ROADMAP.md: Next: AOVs)")
+            "the mip-level AOV is outside the ported slice (ROADMAP.md: "
+            "Next: image, checker, scale and mix textures)")
     if isinstance(scene_or_device, DeviceScene):
         ds = scene_or_device
         if ds.device.type != device.type:
@@ -303,14 +346,30 @@ def render(scene_or_device, settings: RaytracerSettings, device="cuda",
     st = StaticSettings.from_settings(settings)
     width, height = ds.meta.width, ds.meta.height
     out = RenderOutput(width=width, height=height)
+    px, py, unmorton = _pixel_grid(width, height)
+    chunk = chunk_pixels or default_chunk(device)
+    if settings.outputs & AovFlags.FIRST_HIT_AOVS:
+        t0 = time.perf_counter()
+        want_albedo = bool(settings.outputs & AovFlags.ALBEDO)
+        parts = [[r[:size] for r in res] for size, res in _run_chunked(
+            lambda a, b, act: render_aov_chunk(ds, cfg, st, a, b, want_albedo),
+            px, py, device, chunk)]
+        normals, albedo, uv = (
+            torch.cat(p).cpu().numpy()[unmorton] for p in zip(*parts))
+        log.info("aov pass took %.3fs", time.perf_counter() - t0)
+        if settings.outputs & AovFlags.NORMALS:
+            out.normals = normals.reshape(height, width, 3)
+        if settings.outputs & AovFlags.ALBEDO:
+            out.albedo = albedo.reshape(height, width, 3)
+        if settings.outputs & AovFlags.UV_COORDS:
+            out.uv = uv.reshape(height, width, 2)
     if not settings.outputs & AovFlags.BEAUTY:
         return out
-    px, py, unmorton = _pixel_grid(width, height)
     t0 = time.perf_counter()
     parts, rays = [], 0
     for size, (r, n) in _run_chunked(
             lambda a, b, act: render_beauty_chunk(ds, cfg, st, a, b, act),
-            px, py, device, chunk_pixels or default_chunk(device)):
+            px, py, device, chunk):
         parts.append(r[:size])
         rays = rays + n
     beauty = torch.cat(parts).cpu().numpy()

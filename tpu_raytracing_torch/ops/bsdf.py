@@ -1,10 +1,12 @@
 """Batched BSDF evaluation/sampling in the local shading frame.
 
-Counterpart of tpu_raytracing/ops/bsdf.py for the slice: parameter fetch,
-the diffuse BSDF, and the dielectric pieces (Fresnel, refraction, the
-Trowbridge-Reitz microfacet functions, smooth and rough dielectric) that
-the coated-diffuse top interface uses (ops/layered.py). Conductor kinds are
-outside the slice and raise.
+Counterpart of tpu_raytracing/ops/bsdf.py: parameter fetch, the diffuse
+BSDF, smooth and rough dielectrics (whose pieces the coated-diffuse top
+interface also uses, ops/layered.py), and smooth and rough conductors with
+the complex Fresnel term. The conductors keep the JAX package's two guards
+against hits from inside (PARITY.md 2.2): a smooth conductor's sample is
+invalid where cos(wo) <= 0, and a rough one evaluates to zero where wo and
+wi lie in opposite hemispheres.
 
 Conventions: wo/wi in local shading coordinates, +z = shading normal;
 pdfs of delta BSDFs are "1 against the implied delta".
@@ -20,6 +22,7 @@ from ..device.scene_buffers import (
     DeviceScene, MAT_COATED_DIFFUSE, MAT_DIFFUSE, MAT_ROUGH_CONDUCTOR,
     MAT_ROUGH_DIELECTRIC, MAT_SMOOTH_CONDUCTOR, MAT_SMOOTH_DIELECTRIC,
 )
+from .complexmath import fresnel_complex
 from .linalg import cross, dot, normalize
 from .rng import sample_cosine_hemisphere, sample_unit_disk
 from .textures import EvalCtx, eval_texture_from_row
@@ -40,7 +43,7 @@ ALL_COMPONENTS = REFLECTION | TRANSMISSION
 _PI = math.pi
 
 
-def _flag(allowed, flag, ref):
+def has_flag(allowed, flag, ref):
     """(allowed & flag) != 0 as a bool tensor; allowed: int or tensor."""
     return torch.as_tensor((allowed & flag) != 0, device=ref.device)
 
@@ -172,6 +175,14 @@ def fresnel_dielectric(cos_theta_i, eta):
     return torch.where(tir, 1.0, r)
 
 
+def fresnel_complex_rgb(cos_theta, eta3, kappa3):
+    return torch.stack(
+        [fresnel_complex(cos_theta, eta3[..., i], kappa3[..., i])
+         for i in range(3)],
+        dim=-1,
+    )
+
+
 def refract(eta, wo, normal):
     """Returns (wi, tir_mask)."""
     cos_i = dot(wo, normal)
@@ -263,7 +274,7 @@ def diffuse_eval(albedo, wo, wi):
 
 def diffuse_pdf(wo, wi, allowed):
     same_side = wo[..., 2] * wi[..., 2] > 0.0
-    ok = _flag(allowed, NONSPECULAR_REFLECTION, wo) & same_side
+    ok = has_flag(allowed, NONSPECULAR_REFLECTION, wo) & same_side
     return torch.where(ok, 1.0 / (2.0 * _PI), torch.zeros_like(wo[..., 2]))
 
 
@@ -286,8 +297,9 @@ def smooth_dielectric_sample(eta, wo, u1, allowed) -> BsdfSample:
     R = fresnel_dielectric(wo[..., 2], eta)
     T = 1.0 - R
     zero = torch.zeros_like(R)
-    p_reflect = torch.where(_flag(allowed, SPECULAR_REFLECTION, R), R, zero)
-    p_transmit = torch.where(_flag(allowed, SPECULAR_TRANSMISSION, R), T, zero)
+    p_reflect = torch.where(has_flag(allowed, SPECULAR_REFLECTION, R), R, zero)
+    p_transmit = torch.where(has_flag(allowed, SPECULAR_TRANSMISSION, R), T,
+                             zero)
     p_total = p_reflect + p_transmit
     safe_total = torch.where(p_total == 0.0, 1.0, p_total)
     choose_reflect = u1 * safe_total < p_reflect
@@ -316,6 +328,65 @@ def smooth_dielectric_sample(eta, wo, u1, allowed) -> BsdfSample:
     return BsdfSample(
         wi=wi, f=f[..., None].expand(*f.shape, 3).contiguous(), pdf=pdf,
         component=component, valid=valid,
+    )
+
+
+def smooth_conductor_sample(eta3, kappa3, wo) -> BsdfSample:
+    wi = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
+    cos = wo[..., 2]
+    safe_cos = torch.where(cos == 0.0, torch.ones_like(cos), cos)
+    f = fresnel_complex_rgb(cos, eta3, kappa3) / safe_cos[..., None]
+    # cos <= 0: a hit from inside the conductor, where F / wo.z would be a
+    # huge negative weight; the path ends instead (PARITY.md 2.2)
+    return BsdfSample(
+        wi=wi, f=f, pdf=torch.ones_like(cos),
+        component=torch.full(cos.shape, SPECULAR_REFLECTION,
+                             dtype=torch.int32, device=wo.device),
+        valid=cos > 0.0,
+    )
+
+
+# --------------------------------------------------- rough conductor (BRDF)
+
+def _ts_refl_halfvector(wo, wi):
+    h = wo + wi
+    degenerate = torch.all(h == 0.0, dim=-1)
+    return degenerate, normalize(
+        torch.where(degenerate[..., None], torch.ones_like(h), h))
+
+
+def ts_refl_pdf(wo, wi, ax, ay):
+    degenerate, wm = _ts_refl_halfvector(wo, wi)
+    wm = torch.where((wm[..., 2] < 0.0)[..., None], -wm, wm)
+    safe_dot = torch.clamp(torch.abs(dot(wo, wm)), min=1e-20)
+    pdf = tr_visible_distribution(wo, wm, ax, ay) / (4.0 * safe_dot)
+    return torch.where(degenerate, 0.0, pdf)
+
+
+def ts_refl_eval(wo, wi, eta3, kappa3, ax, ay):
+    degenerate, wm = _ts_refl_halfvector(wo, wi)
+    fres = fresnel_complex_rgb(torch.abs(dot(wm, wi)), eta3, kappa3)
+    denom = 4.0 * wo[..., 2] * wi[..., 2]
+    safe_denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    f = ((tr_distribution(wm, ax, ay) * tr_g(wo, wi, ax, ay)
+          / safe_denom)[..., None] * fres)
+    # opposite hemispheres (a hit from inside) would give a negative
+    # reflectance; zero for a reflection-only conductor (PARITY.md 2.2)
+    bad = degenerate | (denom <= 0.0)
+    return torch.where(bad[..., None], 0.0, f)
+
+
+def ts_refl_sample(wo, eta3, kappa3, ax, ay, u2) -> BsdfSample:
+    wm = tr_sample_wm(wo, ax, ay, u2)
+    wi = reflect_z(wo, wm)
+    below = wo[..., 2] * wi[..., 2] < 0.0
+    pdf = ts_refl_pdf(wo, wi, ax, ay)
+    f = ts_refl_eval(wo, wi, eta3, kappa3, ax, ay)
+    return BsdfSample(
+        wi=wi, f=f, pdf=pdf,
+        component=torch.full(pdf.shape, NONSPECULAR_REFLECTION,
+                             dtype=torch.int32, device=wo.device),
+        valid=~below & (pdf > 0.0),
     )
 
 
@@ -351,8 +422,9 @@ def _ts_pdf_from(terms, wo, wi, ax, ay, allowed):
     reflect_case, eta_wm, wm, invalid, R, d, lam_o = terms
     T = 1.0 - R
     zero = torch.zeros_like(R)
-    p_reflect = torch.where(_flag(allowed, NONSPECULAR_REFLECTION, R), R, zero)
-    p_transmit = torch.where(_flag(allowed, NONSPECULAR_TRANSMISSION, R), T,
+    p_reflect = torch.where(has_flag(allowed, NONSPECULAR_REFLECTION, R), R,
+                            zero)
+    p_transmit = torch.where(has_flag(allowed, NONSPECULAR_TRANSMISSION, R), T,
                              zero)
     p_total = p_reflect + p_transmit
     safe_total = torch.where(p_total == 0.0, 1.0, p_total)
@@ -412,8 +484,8 @@ def ts_sample(wo, eta, ax, ay, allowed, u2, u1) -> BsdfSample:
     R = fresnel_dielectric(dot(wo, wm), eta)
     T = 1.0 - R
     zero = torch.zeros_like(R)
-    p_reflect = torch.where(_flag(allowed, REFLECTION, R), R, zero)
-    p_transmit = torch.where(_flag(allowed, TRANSMISSION, R), T, zero)
+    p_reflect = torch.where(has_flag(allowed, REFLECTION, R), R, zero)
+    p_transmit = torch.where(has_flag(allowed, TRANSMISSION, R), T, zero)
     p_total = p_reflect + p_transmit
     safe_total = torch.where(p_total == 0.0, 1.0, p_total)
     choose_reflect = u1 * safe_total < p_reflect

@@ -1,13 +1,14 @@
 """Batched scene intersection: closest-hit, any-hit and hit shading data.
 
-Counterpart of tpu_raytracing/ops/traverse.py for the triangle path: one
-pass over the main accel (no spheres, instances, bounce sort or presorted
-lanes). The triangle query goes through ops/traverse_kernels.py, which
-picks the walk as the JAX kernel switch does and runs its CUDA kernel on
-the card and its plain version on the CPU.
+Counterpart of tpu_raytracing/ops/traverse.py without instances, the
+bounce sort or presorted lanes: a brute-force pass over the analytic
+spheres in object space, then one pass over the main triangle accel with
+the sphere hit as its t_max. The triangle query goes through
+ops/traverse_kernels.py, which picks the walk as the JAX kernel switch does
+and runs its CUDA kernel on the card and its plain version on the CPU.
 
-Winning primitive encoding: prim >= 0 -> triangle index (BVH order);
-prim < 0 -> miss.
+Winning primitive encoding: 0 <= prim < n_tris -> triangle index (BVH
+order); n_tris <= prim -> sphere prim - n_tris; prim < 0 -> miss.
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ from typing import NamedTuple
 import torch
 
 from ..device.scene_buffers import DeviceScene
-from .intersect import ray_triangle
-from .linalg import cross, normalize
+from .intersect import ray_sphere, ray_triangle, sphere_hit_geom
+from .linalg import (
+    apply_point, apply_vector, apply_vector_transposed, cross, normalize,
+)
 from .traverse_kernels import intersect_tris
 
 INF = float("inf")
@@ -38,20 +41,49 @@ class Hit(NamedTuple):
     light: torch.Tensor     # (B,) i32 (-1 = not an emitter)
 
 
+def _intersect_spheres(ds: DeviceScene, origin, direction, t_min, t_max):
+    """Every sphere, brute force, in object space. Returns (t, sphere
+    index); the first index wins an equal t, as jnp.argmin does."""
+    S = ds.sph_center.shape[0]
+    o_o = apply_point(ds.sph_w2o[None, :], origin[:, None, :])
+    d_o = apply_vector(ds.sph_w2o[None, :], direction[:, None, :])
+    valid, t = ray_sphere(o_o, d_o, ds.sph_center[None, :],
+                          ds.sph_radius[None, :], t_min[:, None],
+                          t_max[:, None])
+    real = torch.arange(S, device=origin.device)[None, :] < ds.meta.n_spheres
+    t = torch.where(valid & real, t, torch.full_like(t, INF))
+    best = torch.argmin(t, dim=1)
+    t_best = torch.gather(t, 1, best[:, None])[:, 0]
+    return t_best, best.to(torch.int32)
+
+
 def intersect_scene(ds: DeviceScene, origin, direction, t_min, t_max,
                     early_exit: bool = False, active=None):
-    """Closest-hit (or any-hit) query. Returns (t, encoded prim or -1)."""
+    """Closest-hit (or any-hit) query. Returns (t, encoded prim or -1).
+
+    A sphere hit cuts the lane's t_max for the triangle walk; a triangle
+    at t <= that hit replaces it. Any-hit lanes a sphere occludes skip the
+    walk."""
     B = origin.shape[0]
-    t_max = t_max.to(torch.float32).expand(B).contiguous()
+    dev = origin.device
+    t_min = t_min.expand(B).contiguous()
+    t_best = t_max.to(torch.float32).expand(B).contiguous()
+    best = torch.full((B,), -1, dtype=torch.int32, device=dev)
     if active is None:
-        active = torch.ones(B, dtype=torch.bool, device=origin.device)
-    if ds.meta.n_tris == 0:
-        return (torch.full((B,), INF, device=origin.device),
-                torch.full((B,), -1, dtype=torch.int32, device=origin.device))
-    t_best, best = intersect_tris(
-        ds, origin, direction, t_min.expand(B).contiguous(), t_max, active,
-        early_exit,
-    )
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+    n_tris = ds.meta.n_tris
+    if ds.meta.n_spheres:
+        st, sidx = _intersect_spheres(ds, origin, direction, t_min, t_best)
+        sph_hit = torch.isfinite(st) & active
+        t_best = torch.where(sph_hit, st, t_best)
+        best = torch.where(sph_hit, n_tris + sidx, best)
+    if n_tris:
+        walk = active & (best < 0) if early_exit else active
+        pt, pbest = intersect_tris(ds, origin, direction, t_min, t_best,
+                                   walk, early_exit)
+        tri_hit = pbest >= 0
+        t_best = torch.where(tri_hit, pt, t_best)
+        best = torch.where(tri_hit, pbest, best)
     t = torch.where(best >= 0, t_best, torch.full_like(t_best, INF))
     return t, best
 
@@ -64,12 +96,15 @@ def occluded(ds: DeviceScene, origin, direction, t_min, t_max, active=None):
 
 
 def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
-    """Expand an encoded (t, prim) result into full shading geometry."""
+    """Expand an encoded (t, prim) result into full shading geometry.
+    Triangles interpolate in world space; spheres are recomputed in object
+    space and transformed out."""
     n_tris = ds.meta.n_tris
     hit = prim >= 0
+    is_tri = hit & (prim < n_tris)
     point = origin + t[:, None] * direction
 
-    tid = torch.clamp(torch.where(hit, prim, torch.zeros_like(prim)),
+    tid = torch.clamp(torch.where(is_tri, prim, torch.zeros_like(prim)),
                       0, max(n_tris - 1, 0))
     sh = ds.tri_shade[tid.long()]
     p0, p1, p2 = sh[:, 0:3], sh[:, 3:6], sh[:, 6:9]
@@ -105,6 +140,37 @@ def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
         1.0 / torch.where(degenerate, torch.ones_like(det), det))
     dpdu = inv_det[:, None] * (duv12[:, 1:2] * dp02 - duv02[:, 1:2] * dp12)
     dpdv = inv_det[:, None] * (duv02[:, 0:1] * dp12 - duv12[:, 0:1] * dp02)
+    material, light = sh_ints[:, 0], sh_ints[:, 1]
+
+    if ds.meta.n_spheres:
+        sid = torch.clamp(
+            torch.where(is_tri, torch.zeros_like(prim), prim - n_tris),
+            0, ds.sph_center.shape[0] - 1).long()
+        w2o, o2w = ds.sph_w2o[sid], ds.sph_o2w[sid]
+        o_o = apply_point(w2o, origin)
+        d_o = apply_vector(w2o, direction)
+        p_o = o_o + t[:, None] * d_o
+        # Reproject the hit onto the surface and inflate it a few ULPs
+        # outward: o + t*d can round to a point inside the sphere, from
+        # which a grazing reflection re-enters on a real chord and
+        # self-shadows the silhouette (the JAX package's robustness fix
+        # over geometry.rs:92-136; the metal scene lost 19% of its energy
+        # without it). Transmitted rays re-enter at t ~ 1e-7 << t_min.
+        ctr, rad = ds.sph_center[sid], ds.sph_radius[sid]
+        rel = p_o - ctr
+        rn = torch.sqrt(torch.sum(rel * rel, dim=-1, keepdim=True))
+        safe_rn = torch.where(rn == 0.0, torch.ones_like(rn), rn)
+        p_o = ctr + rel * (rad[:, None] / safe_rn) * (1.0 + 4.0e-7)
+        sph_uv, n_o, dpdu_o, dpdv_o = sphere_hit_geom(p_o, ctr, rad)
+        sel = is_tri[:, None]
+        uv = torch.where(sel, uv, sph_uv)
+        point = torch.where(sel, point, apply_point(o2w, p_o))
+        normal = torch.where(
+            sel, normal, normalize(apply_vector_transposed(w2o, n_o)))
+        dpdu = torch.where(sel, dpdu, apply_vector(o2w, dpdu_o))
+        dpdv = torch.where(sel, dpdv, apply_vector(o2w, dpdv_o))
+        material = torch.where(is_tri, material, ds.sph_mat[sid])
+        light = torch.where(is_tri, light, ds.sph_light[sid])
 
     h1 = hit[:, None]
     return Hit(
@@ -116,6 +182,6 @@ def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
         normal=torch.where(h1, normal, torch.zeros_like(normal)),
         dpdu=torch.where(h1, dpdu, torch.zeros_like(dpdu)),
         dpdv=torch.where(h1, dpdv, torch.zeros_like(dpdv)),
-        material=torch.where(hit, sh_ints[:, 0], torch.zeros_like(prim)),
-        light=torch.where(hit, sh_ints[:, 1], torch.full_like(prim, -1)),
+        material=torch.where(hit, material, torch.zeros_like(prim)),
+        light=torch.where(hit, light, torch.full_like(prim, -1)),
     )
