@@ -34,8 +34,19 @@ Phases (any failure exits nonzero and prints no result):
    just after each; on metal, the bvh8t walk on camera rays with
    and without the sphere's cut of t_max, and on shadow rays with and
    without the sphere-occluded lanes; one 1,024-pixel block on each
-   sphere at 2 spp on cuda against cpu; and the normals-only scenes
-   (sphere, cube, cube_orthographic) at 400x400 on cuda against cpu;
+   sphere at 2 spp on cuda against cpu; the normals-only scenes
+   (sphere, cube, cube_orthographic) at 400x400 on cuda against cpu; then
+   the textures and lights: checkered_plane (480x270, 1 spp),
+   environment_light (500x500, 32 spp) and the emissive Cornell box
+   (500x500, 32 spp, 4 light samples), each a full frame with its launch
+   counts reset just before and read just after (the any-hit walk must
+   launch in the first and last and never in environment_light, which has
+   no light), and a 1,024-pixel block of each on cuda against cpu (and
+   the whole checkered frame's share, not gated); bounce 1's first
+   area-light shadow batch of the emissive frame (250,000 lanes, per-lane
+   t_max) held against the plain walk, then timed and bounded; and the
+   textured cubes' albedo and mip-level AOVs at 400x400 on cuda against
+   cpu;
 8. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
    cost), P4 (bf16 slab), P2 (slab cost) and P1 (walk-visit ablation), at
    the scripts' counts (P1 at 4,096 visits, not the script's 200,000: its
@@ -162,6 +173,21 @@ SPHERE_CUT_ROUNDS = 3
 AOV_SCENES = ("sphere", "cube", "cube_orthographic")
 AOV_ATOL = 1e-5
 AOV_MIN_SHARE = 0.999
+# the frames of the textures and lights slice (phase 7), at their builtin
+# settings (the emissive box: RaytracerSettings' defaults): frame -> (the
+# first pixel of its 32x32 block held against cpu, the block's spp, whether
+# the any-hit walk launches). The checkered plane's block lies in the near
+# half, where a cell covers many pixels; environment_light's straddles the
+# cube's silhouette against the sky (it has no light, so no shadow ray);
+# the emissive box's is the ceiling at the quad's edge. Limits as the
+# sphere blocks': mean 1%, rays 0.5%, TEXTURE_MIN_CLOSE within rtol 1e-3.
+TEXTURE_FRAMES = {
+    "checkered_plane": ((224, 224), 1, True),
+    "environment_light": ((256, 224), 2, False),
+    "emissive_box": ((192, 96), 2, True),
+}
+TEXTURE_MIN_CLOSE = 0.98
+TEXTURED_CUBES = 400  # the textured cubes' AOV frame, pixels a side
 # the probes (phase 8): name, source, the Pallas probe it replaces. One SM
 # runs each, by design, so a bound's share of one SM is its card share
 # times the SMs.
@@ -535,17 +561,21 @@ def launch_counts() -> dict:
 
 
 @contextlib.contextmanager
-def kept_batches(walk: str, store: list):
+def kept_batches(walk: str, store: list, calls=None):
     """Keep a copy of every ray batch the kernel switch hands `walk` in the
-    block, as (origin, direction, t_min, t_max, active, early_exit); the
-    walk's own wrapper still runs and counts its launches."""
+    block (or of the `calls`-th ones only, counted from 0), as (origin,
+    direction, t_min, t_max, active, early_exit); the walk's own wrapper
+    still runs and counts its launches."""
     from tpu_raytracing_torch.ops import traverse_kernels as TK
 
     fn = TK.WALKS[walk]
+    seen = [0]
 
     def keep(ds, origin, direction, t_min, t_max, active, early_exit=False):
-        store.append((*(x.clone() for x in (origin, direction, t_min, t_max,
-                                             active)), early_exit))
+        if calls is None or seen[0] in calls:
+            store.append((*(x.clone() for x in (origin, direction, t_min,
+                                                 t_max, active)), early_exit))
+        seen[0] += 1
         return fn(ds, origin, direction, t_min, t_max, active, early_exit)
 
     TK.WALKS[walk] = keep
@@ -885,9 +915,246 @@ def phase_builtin_scenes(card: str) -> dict:
               f"cuda {tg:.3f} s on {card}, cpu {tc:.3f} s (scene compile "
               f"included); bvh8t launches "
               f"{launches}: {'ok' if aov_ok else 'FAIL'}", flush=True)
-    if not ok:
+    frames_ok, frames = texture_frames(card)
+    out.update(frames)
+    if not (ok and frames_ok):
         raise AssertionError("a builtin scene failed its frame or parity")
     return out
+
+
+def _scene_modules(tmod, mmod, geom):
+    """The port's scene, materials and geometry modules unless given."""
+    if tmod is None:
+        import tpu_raytracing_torch.geometry as geom
+        import tpu_raytracing_torch.materials as mmod
+        import tpu_raytracing_torch.scene.test_scenes as tmod
+    return tmod, mmod, geom
+
+
+def emissive_box(tmod=None, mmod=None, geom=None):
+    """The Cornell box template (cornell_box(): five walls, a point light
+    under the ceiling, a 500x500 camera) with a 0.5 x 0.5 quad just under
+    the ceiling that emits (5, 5, 5) down into the box. Built from the
+    port's modules, or from the ones given (tests build the JAX package's
+    copy the same way)."""
+    tmod, mmod, geom = _scene_modules(tmod, mmod, geom)
+    sb = tmod.cornell_box()
+    quad = tmod.make_plane(  # wound to face down
+        tmod.v3(-0.25, -0.25, 1.49), tmod.v3(-0.25, 0.25, 1.49),
+        tmod.v3(0.25, 0.25, 1.49), tmod.v3(0.25, -0.25, 1.49),
+        tmod.v3(0, 0, -1))
+    white = sb.add_constant_texture(tmod.v4(1, 1, 1, 1))
+    mat = sb.add_material(mmod.Diffuse(albedo=white))
+    sb.add_shape_with_transform(
+        geom.TriangleMesh(quad), mat, geom.Transform.identity(),
+        area_light_radiance=np.array([5.0, 5.0, 5.0], np.float32))
+    return sb.build()
+
+
+def textured_cubes(size: int, tmod=None, mmod=None, geom=None):
+    """Three cubes in a row under a size x size camera, uv from -1.25 to
+    2.5 on every face, whose albedos are: a seeded 48x40 image, TRILINEAR
+    and MIRROR (its pyramid pads to 64x64); that image scaled by a
+    checker; and a mix of the two by a constant. Modules as emissive_box's."""
+    tmod, mmod, geom = _scene_modules(tmod, mmod, geom)
+    sb = tmod.SceneBuilder()
+    data = np.random.default_rng(7).uniform(0.05, 1.0, (40, 48, 3))
+    img = sb.add_image(mmod.Image(data.astype(np.float32)))
+    image = sb.add_texture(mmod.ImageTexture(
+        image=img, sampler=mmod.TextureSampler(
+            filter=mmod.FilterMode.TRILINEAR, wrap=mmod.WrapMode.MIRROR)))
+    checker = sb.add_texture(mmod.CheckerTexture(
+        color1=tmod.v4(0.9, 0.8, 0.2, 1), color2=tmod.v4(0.1, 0.3, 0.7, 1)))
+    scale = sb.add_texture(mmod.ScaleTexture(a=image, b=checker))
+    c = sb.add_constant_texture(tmod.v4(0.3, 0.3, 0.3, 1))
+    mix = sb.add_texture(mmod.MixTexture(a=image, b=scale, c=c))
+    face_uv = np.array([[-1.25, -1.25], [2.5, -1.25], [2.5, 2.5],
+                        [-1.25, 2.5]], np.float32)
+    for x, tex in ((-1.3, image), (0.0, scale), (1.3, mix)):
+        mesh = tmod.make_cube(1.0)
+        mesh.uvs = np.tile(face_uv, (6, 1))
+        mat = sb.add_material(mmod.Diffuse(albedo=tex))
+        sb.add_shape_at_position(geom.TriangleMesh(mesh), mat,
+                                 tmod.v3(x, 0, -4))
+    sb.add_camera(tmod.Camera.lookat_camera_perspective(
+        tmod.v3(0, 1.5, 0), tmod.v3(0, 0, -4), tmod.v3(0, 1, 0), False,
+        np.deg2rad(45.0), size, size))
+    return sb.build()
+
+
+def area_shadow_call(ds, settings) -> int:
+    """The index, among the walk calls of a frame, of bounce 1's first
+    area-light shadow batch in sample 0. A bounce makes one closest-hit
+    call, then each light's shadow calls in light order (one for a point
+    or direction light, light_sample_count for an area light)."""
+    from tpu_raytracing_torch.device.scene_buffers import (
+        LIGHT_AREA, LIGHT_DIRECTION, LIGHT_POINT,
+    )
+
+    kinds = ds.meta.light_kinds
+    n_s = [1 if k in (LIGHT_POINT, LIGHT_DIRECTION)
+           else settings.light_sample_count for k in kinds]
+    return (1 + sum(n_s)) + 1 + sum(n_s[:kinds.index(LIGHT_AREA)])
+
+
+def texture_frames(card: str) -> tuple:
+    """The frames of the textures and lights slice: checkered_plane,
+    environment_light and the emissive box on cuda at their builtin
+    settings, launch counts reset just before each and read just after,
+    with the launch pattern each must show and one 1,024-pixel block of
+    each on cuda against cpu; bounce 1's first area-light shadow batch of
+    the emissive frame held against the plain walk, then timed and bounded;
+    and the textured cubes' albedo and mip-level AOVs on cuda against cpu.
+    Returns (ok, frame -> bvh8t launches, with "area_shadow" -> the
+    batch's stats)."""
+    from tpu_raytracing_torch.device import compile_scene
+    from tpu_raytracing_torch.integrator.render import (
+        StaticSettings, _pixel_grid, render, render_beauty_chunk,
+    )
+    from tpu_raytracing_torch.ops.rng import SamplerConfig
+    from tpu_raytracing_torch.ops.traverse_bvh8t import intersect_tris_plain
+    from tpu_raytracing_torch.ops.traverse_kernels import (
+        WALKS, reset_launch_counts,
+    )
+    from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+    from tpu_raytracing_torch.settings import AovFlags, RaytracerSettings
+
+    ok, out = True, {}
+    for name, ((x0, y0), block_spp, any_hit) in TEXTURE_FRAMES.items():
+        if name == "emissive_box":
+            scene, s = emissive_box(), RaytracerSettings()
+        else:
+            ts = get_test_scene(name)
+            scene, s = ts.scene_func(), ts.settings_func()
+        ds = compile_scene(scene)
+        store = []
+        keep = (kept_batches("bvh8t", store, {area_shadow_call(ds, s)})
+                if name == "emissive_box" else contextlib.nullcontext())
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with keep:
+            res = render(ds, s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()["bvh8t"]
+        img = res.beauty
+        mean = float(img.mean())
+        frame_ok = (bool(np.isfinite(img).all()) and mean > 0.0
+                    and launches["closest_hit"] > 0
+                    and (launches["any_hit"] > 0) == any_hit)
+        ok = ok and frame_ok
+        out[name] = launches
+        print(f"# scene {name}: {img.shape[1]}x{img.shape[0]}, "
+              f"{s.samples_per_pixel} spp, depth {s.max_ray_depth}, "
+              f"{s.light_sample_count} light samples: {wall:.3f} s wall, "
+              f"{res.rays_traced} rays, "
+              f"{res.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; mean "
+              f"{mean:.6g}; bvh8t launches {launches} (any-hit "
+              f"{'expected' if any_hit else 'none expected: no light'}): "
+              f"{'ok' if frame_ok else 'FAIL'}", flush=True)
+
+        # one 1,024-pixel block, cuda against cpu
+        sb = dataclasses.replace(s, samples_per_pixel=block_spp)
+        cfg = SamplerConfig.from_settings(sb.sampler, sb.seed)
+        st = StaticSettings.from_settings(sb)
+        px, py, _ = _pixel_grid(ds.meta.width, ds.meta.height)
+        start = int(np.nonzero((px == x0) & (py == y0))[0][0])
+        sel = slice(start, start + SCENE_BLOCK)
+        ds_cpu = compile_scene(scene, "cpu")
+        blk = {}
+        for dev, dsd in (("cuda", ds), ("cpu", ds_cpu)):
+            t0 = time.perf_counter()
+            r, n = render_beauty_chunk(
+                dsd, cfg, st,
+                torch.from_numpy(px[sel].astype(np.int64)).to(dev),
+                torch.from_numpy(py[sel].astype(np.int64)).to(dev),
+                torch.ones(SCENE_BLOCK, dtype=torch.bool, device=dev))
+            blk[dev] = (r.cpu().numpy(), int(n), time.perf_counter() - t0)
+        (g, ng, tg), (c, nc, tc) = blk["cuda"], blk["cpu"]
+        close, mean_rel, rays_rel = parity(g, ng, c, nc)
+        block_ok = (mean_rel <= PARITY_MEAN_RTOL
+                    and close >= TEXTURE_MIN_CLOSE
+                    and rays_rel <= PARITY_RAYS_RTOL
+                    and bool(np.isfinite(g).all()))
+        ok = ok and block_ok
+        print(f"# scene {name} block ({SCENE_BLOCK} pixels from ({x0}, {y0}), "
+              f"{block_spp} spp), cuda vs cpu: mean {g.mean():.6g} vs "
+              f"{c.mean():.6g} (rel {mean_rel:.2e}, limit {PARITY_MEAN_RTOL}); "
+              f"{close * 100:.2f}% of pixels within rtol {PARITY_PIXEL_RTOL} "
+              f"(limit {TEXTURE_MIN_CLOSE * 100:.0f}%); rays {ng} vs {nc} (rel "
+              f"{rays_rel:.2e}, limit {PARITY_RAYS_RTOL}); cuda {tg:.2f} s, "
+              f"cpu {tc:.2f} s: {'ok' if block_ok else 'FAIL'}", flush=True)
+        if name == "checkered_plane":  # the whole 1-spp frame, not gated
+            t0 = time.perf_counter()
+            whole = render(ds_cpu, s, "cpu")
+            fc, fmean, frays = parity(img, res.rays_traced, whole.beauty,
+                                      whole.rays_traced)
+            print(f"# scene {name} whole frame, cuda vs cpu (not gated): "
+                  f"{fc * 100:.3f}% of pixels within rtol "
+                  f"{PARITY_PIXEL_RTOL}; mean rel {fmean:.2e}, rays rel "
+                  f"{frays:.2e}; cpu {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+
+        if name == "emissive_box":
+            b_ok, out["area_shadow"] = area_shadow_batch(
+                ds, store, WALKS["bvh8t"], intersect_tris_plain)
+            ok = ok and b_ok
+
+    # the textured cubes: albedo and mip-level AOVs, cuda against cpu
+    scene = textured_cubes(TEXTURED_CUBES)
+    s = RaytracerSettings(
+        outputs=AovFlags.NORMALS | AovFlags.ALBEDO | AovFlags.MIP_LEVEL)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = (render(scene, s, dev), time.perf_counter() - t0)
+    (g, tg), (c, tc) = res["cuda"], res["cpu"]
+    hit_g, hit_c = np.any(g.normals != 0, -1), np.any(c.normals != 0, -1)
+    alb = float(np.all(np.abs(g.albedo - c.albedo) <= AOV_ATOL, -1).mean())
+    mip = float((np.abs(g.mip_level - c.mip_level) <= AOV_ATOL).mean())
+    on_mip = c.mip_level != 0
+    aov_ok = (bool(np.array_equal(hit_g, hit_c))
+              and bool(np.isfinite(g.albedo).all())
+              and bool(np.isfinite(g.mip_level).all())
+              and alb >= AOV_MIN_SHARE and mip >= AOV_MIN_SHARE
+              and 0 < on_mip.mean() < hit_c.mean())
+    ok = ok and aov_ok
+    print(f"# textured cubes {TEXTURED_CUBES}x{TEXTURED_CUBES}, cuda vs cpu: "
+          f"hit masks {'equal' if np.array_equal(hit_g, hit_c) else 'DIFFER'} "
+          f"({hit_c.mean() * 100:.2f}% hit); albedo within {AOV_ATOL} on "
+          f"{alb * 100:.4f}%, mip level within {AOV_ATOL} on {mip * 100:.4f}% "
+          f"of pixels (limit {AOV_MIN_SHARE * 100:.1f}%); mip level on "
+          f"{on_mip.mean() * 100:.2f}% of pixels, "
+          f"{c.mip_level[on_mip].min():.4f} to {c.mip_level[on_mip].max():.4f}"
+          f"; cuda {tg:.3f} s on {card}, cpu {tc:.3f} s (scene compile "
+          f"included): {'ok' if aov_ok else 'FAIL'}", flush=True)
+    return ok, out
+
+
+def area_shadow_batch(ds, store, kernel, plain) -> tuple:
+    """The emissive frame's kept area-light shadow batch: its origins on
+    the emitter and per-lane t_max, held against the plain walk, then timed
+    and bounded (hold_and_time). Returns (ok, stats)."""
+    if len(store) != 1 or not store[0][-1]:
+        print(f"# area-light shadow batch: kept {len(store)} batches, want "
+              "one any-hit batch: FAIL", flush=True)
+        return False, {}
+    batch = store[0]
+    o, _, _, t_max, act = batch[:5]
+    z, tm = o[act][:, 2], t_max[act]
+    shape_ok = (o.shape[0] == ds.meta.width * ds.meta.height
+                and bool(act.any())
+                and bool(torch.all(torch.abs(z - 1.49) < 1e-5))
+                and bool(torch.isfinite(tm).all()) and float(tm.std()) > 0)
+    print(f"# area-light shadow batch (bounce 1, sample 0): {o.shape[0]} "
+          f"lanes, {int(act.sum())} live, origins at z {float(z.min()):.4f} "
+          f"to {float(z.max()):.4f}, t_max {float(tm.min()):.4f} to "
+          f"{float(tm.max()):.4f} (std {float(tm.std()):.4f}): "
+          f"{'ok' if shape_ok else 'FAIL'}", flush=True)
+    held_ok, stats = hold_and_time(ds, "bvh8t", kernel, plain, batch, batch,
+                                   " area-light shadow batch")
+    return shape_ok and held_ok, dict(stats, live=int(act.sum()))
 
 
 def max_clock_hz() -> float:
@@ -1271,7 +1538,8 @@ def kernel_entries(stats: dict, frame: dict, switch: dict,
     (closest-hit for the walks, whose any-hit numbers ride along). bvh8t's
     entries also carry their mode's bounce-2 batch and the frame's
     traversal in all (phase 9), and their launches in each builtin scene's
-    frame (phase 7)."""
+    frame (phase 7); the any-hit entry also the emissive frame's
+    area-light shadow batch (phase 7)."""
     kernels = []
     for kname, walk, modes, source, line in KERNELS:
         main_mode = modes[0]
@@ -1288,7 +1556,9 @@ def kernel_entries(stats: dict, frame: dict, switch: dict,
             entry["frame_traversal"] = traversal["frame_" + main_mode]
             entry["scene_launches"] = {
                 name: c[main_mode] for name, c in scenes.items()
-                if name in BEAUTY_SCENES}
+                if name in BEAUTY_SCENES or name in TEXTURE_FRAMES}
+            if main_mode == "any_hit":
+                entry["area_shadow_batch"] = scenes["area_shadow"]
         if len(modes) > 1:
             entry["launches_by_mode"] = switch[walk]
             entry["any_hit"] = stats[walk, "any_hit"]

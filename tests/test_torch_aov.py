@@ -1,5 +1,5 @@
-"""First-hit AOVs (normals, albedo, uv): the port's render against the JAX
-package's.
+"""First-hit AOVs (normals, albedo, uv, mip level): the port's render
+against the JAX package's.
 
 Both packages trace the same unjittered camera rays, bit for bit, and shade
 the first hit with short f32 chains. Normals and uv agree within atol 1e-5
@@ -89,8 +89,17 @@ def test_aovs_leave_beauty_unchanged():
 
 
 def test_mip_level_raises():
+    """The mip-level AOV no longer raises. On a scene with no trilinear
+    image texture (the cube, whose albedo is a constant) it is all zero,
+    as JAX's is; tests/test_torch_render_textures.py holds it on a
+    trilinear image."""
     scene, s = _small(get_test_scene, "cube")
+    jscene, js = _small(jax_test_scene, "cube")
     s.outputs = AovFlags.NORMALS | AovFlags.MIP_LEVEL
-    with pytest.raises(NotImplementedError,
-                       match="Next: image, checker, scale and mix textures"):
-        render(scene, s, "cpu")
+    js.outputs = JAovFlags(int(s.outputs))
+    got = render(scene, s, "cpu")
+    want = jax_render(jscene, js)
+    assert got.mip_level.shape == want.mip_level.shape == (SIZE, SIZE)
+    np.testing.assert_array_equal(got.mip_level, 0.0)
+    np.testing.assert_array_equal(want.mip_level, 0.0)
+    assert got.albedo is None and np.any(got.normals != 0)

@@ -30,6 +30,8 @@ from tpu_raytracing_torch.probes import walk_cost as P1
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
+from chip_smoke import emissive_box, textured_cubes
+
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
@@ -319,6 +321,121 @@ def test_dielectric_block_cuda_vs_cpu():
     np.testing.assert_allclose(g.mean(axis=0), c.mean(axis=0), rtol=0.01)
     close = np.all(np.abs(g - c) <= 1e-3 * np.abs(c) + 1e-6, axis=-1)
     assert close.mean() >= 0.90, close.mean()
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the walk is a CUDA kernel")
+
+
+def test_textures_cuda_vs_cpu():
+    """Every texture kind (image under each filter and wrap mode, checker,
+    constant, scale, mix) on seeded uv and derivatives, on cuda against cpu
+    on the same tables: within rtol 1e-5 (erf and log2 may differ in the
+    last bits), and bit-equal without derivatives on at least 99% of the
+    lanes (a last bit of a wrapped coordinate may move a NEAREST tap)."""
+    import tpu_raytracing_torch.materials as TM
+    from tpu_raytracing_torch.ops import textures as TT
+
+    _needs_card()
+    scene = textured_cubes(16)
+    for f in TM.FilterMode:
+        for w in TM.WrapMode:
+            scene.textures.append(TM.ImageTexture(
+                image=0, sampler=TM.TextureSampler(filter=f, wrap=w)))
+    ds = {dev: compile_scene(scene, dev) for dev in ("cuda", "cpu")}
+    assert ds["cpu"].meta.any_nearest and ds["cpu"].meta.any_trilinear
+    n = 65536
+    g = np.random.default_rng(41)
+    tid = g.integers(-1, len(scene.textures), n).astype(np.int32)
+    uv = g.uniform(-3, 3, (n, 2))
+    uv[: n // 4] = g.uniform(-500, 500, (n // 4, 2))
+    der = g.choice([-1, 1], (4, n)) * 10.0 ** g.uniform(-4, -0.5, (4, n))
+    der[:, : n // 3] = 0.0
+    inp = [uv.astype(np.float32), *der.astype(np.float32)]
+    for has_derivs in (False, True):
+        out = {}
+        for dev, d in ds.items():
+            ctx = TT.EvalCtx(*(torch.from_numpy(a).to(dev) for a in inp))
+            if not has_derivs:
+                ctx = TT.EvalCtx.without_antialiasing(ctx.uv)
+            out[dev] = TT.eval_texture(d, torch.from_numpy(tid).to(dev), ctx,
+                                       has_derivs).cpu().numpy()
+        got, want = out["cuda"], out["cpu"]
+        assert np.isfinite(got).all()
+        close = np.all(np.isclose(got, want, rtol=1e-5, atol=1e-6), axis=-1)
+        assert close.mean() >= 0.99, (has_derivs, close.mean())
+        if not has_derivs:
+            assert np.all(got == want, axis=-1).mean() >= 0.99
+
+
+def test_area_light_shadow_rays_kernel_vs_plain():
+    """Area-light shadow rays of the emissive Cornell box (origins on the
+    quad, per-lane t_max = d - 1e-3) through the any-hit kernel against
+    the plain walk: hit bits equal. Half the shading points are the camera
+    rays' first hits, which the empty box leaves unoccluded; the other
+    half lie above the ceiling, which occludes them."""
+    from tpu_raytracing_torch.device.scene_buffers import LIGHT_AREA
+    from tpu_raytracing_torch.integrator.render import _pixel_grid
+    from tpu_raytracing_torch.ops.camera_rays import generate_rays
+    from tpu_raytracing_torch.ops.light_sampling import sample_light
+    from tpu_raytracing_torch.ops.rng import SamplerConfig, make_stream
+    from tpu_raytracing_torch.ops.traverse import intersect_scene
+
+    _needs_card()
+    scene = emissive_box()
+    scene.camera = scene.camera.with_resolution(128, 128)
+    ds = compile_scene(scene, "cuda")
+    cfg = SamplerConfig("independent")
+    px, py, _ = _pixel_grid(128, 128)
+    px = torch.from_numpy(px.astype(np.int64)).cuda()
+    py = torch.from_numpy(py.astype(np.int64)).cuda()
+    stream = make_stream(px, py, 0)
+    o, d, _, stream = generate_rays(ds, px, py, cfg, stream, 1, True)
+    n = o.shape[0]
+    full = lambda v: torch.full((n,), v, device="cuda")  # noqa: E731
+    t, prim = intersect_scene(ds, o, d, full(ds.meta.near_clip),
+                              full(ds.meta.far_clip))
+    g = np.random.default_rng(43)
+    above = np.stack([g.uniform(-0.9, 0.9, n), g.uniform(-0.9, 0.9, n),
+                      g.uniform(1.6, 2.5, n)], axis=1).astype(np.float32)
+    outside = torch.arange(n, device="cuda") >= n // 2
+    points = torch.where(outside[:, None], torch.from_numpy(above).cuda(),
+                         o + t[:, None] * d)
+    li = ds.meta.light_kinds.index(LIGHT_AREA)
+    ls, _ = sample_light(ds, li, points, cfg, stream)
+    args = (ls.origin.contiguous(), ls.direction.contiguous(), full(1e-3),
+            (ls.distance - 1e-3).contiguous(), outside | (prim >= 0))
+    reset_launch_counts()
+    tk, bk = intersect_tris_bvh8t(ds, *args, early_exit=True)
+    assert intersect_tris_bvh8t.launches["any_hit"] == 1
+    tp, bp = intersect_tris_plain(ds, *args, early_exit=True)
+    hit_k, hit_p = (bk >= 0).cpu().numpy(), (bp >= 0).cpu().numpy()
+    np.testing.assert_array_equal(hit_k, hit_p)
+    act, out = args[4].cpu().numpy(), outside.cpu().numpy()
+    assert np.all(hit_k[~act] == 0)
+    assert hit_p[out].mean() > 0.99  # the ceiling blocks them
+    assert hit_p[act & ~out].mean() < 0.01  # the box is empty
+    assert float(args[3][args[4]].std()) > 0  # t_max differs per lane
+
+
+def test_environment_light_never_launches_any_hit():
+    """environment_light at 64x64 and 2 spp on cuda: its cube takes the
+    closest-hit walk, and with no light no shadow ray is walked; the frame
+    agrees with cpu in mean (1%) and rays_traced (0.5%)."""
+    _needs_card()
+    ts = get_test_scene("environment_light")
+    scene = ts.scene_func()
+    scene.camera = scene.camera.with_resolution(64, 64)
+    s = dataclasses.replace(ts.settings_func(), samples_per_pixel=2)
+    reset_launch_counts()
+    g = render(scene, s)
+    assert intersect_tris_bvh8t.launches["closest_hit"] > 0
+    assert intersect_tris_bvh8t.launches["any_hit"] == 0
+    c = render(scene, s, "cpu")
+    assert np.isfinite(g.beauty).all() and g.beauty.mean() > 0
+    assert abs(g.rays_traced - c.rays_traced) <= 0.005 * c.rays_traced
+    np.testing.assert_allclose(g.beauty.mean(), c.beauty.mean(), rtol=0.01)
 
 
 # the probes: the plain versions run op by op, so they are compared at a

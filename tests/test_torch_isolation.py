@@ -89,15 +89,22 @@ def test_numpy_builder_equals_native(name):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
 
 
-@pytest.mark.parametrize("name", ["coated_diffuse_bunny", "cube", "sphere"])
+@pytest.mark.parametrize("name", ["coated_diffuse_bunny", "cube", "sphere",
+                                  "checkered_plane", "environment_light"])
 def test_scene_copies_match(name):
-    """The port's builtin scenes hold the JAX package's meshes, materials
-    and lights."""
+    """The port's builtin scenes hold the JAX package's meshes, materials,
+    textures, images (byte for byte) and lights."""
     a = get_test_scene(name).scene_func()
     b = jax_test_scene(name).scene_func()
     assert [type(p).__name__ for p in a.primitives] == [
         type(p).__name__ for p in b.primitives]
-    assert len(a.textures) == len(b.textures)
+    assert [type(t).__name__ for t in a.textures] == [
+        type(t).__name__ for t in b.textures]
+    assert len(a.images) == len(b.images)
+    for x, y in zip(a.images, b.images):
+        assert x.data.dtype == y.data.dtype and x.data.shape == y.data.shape
+        assert x.data.tobytes() == y.data.tobytes()
+    assert (a.environment_light is None) == (b.environment_light is None)
     assert [type(m).__name__ for m in a.materials] == [
         type(m).__name__ for m in b.materials]
     assert [type(x).__name__ for x in a.lights] == [

@@ -7,6 +7,7 @@ of every walk the kernel switch selects included (the bvh8t node blocks
 hold NaN in empty slots, so all tables are compared as raw bytes).
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -17,6 +18,8 @@ from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
 from tpu_raytracing_torch.device import compile_scene, from_jax_leaves
 from tpu_raytracing_torch.device.scene_buffers import LEAF_NAMES, SceneMeta
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+
+from chip_smoke import emissive_box, textured_cubes
 
 torch.set_num_threads(1)
 
@@ -105,24 +108,41 @@ def test_triangle_rows_pad_with_zeros(both, table):
 
 
 def _outside_scene(case, tmod, mmod, geom):
-    """A scene outside the slice, built from one package's own modules
-    (scene.test_scenes, materials, geometry): the cube with
-    an image or a mix texture for albedo, or the Cornell box with an
-    emissive quad (an area light)."""
+    """A scene beyond the builtin set, built from one package's own modules
+    (scene.test_scenes, materials, geometry): the cube with an image or a
+    mix texture for albedo; chip_smoke.py's emissive Cornell box (an area
+    light beside the point light) and textured cubes, at 64x64; or the
+    Cornell box with an emissive sphere or an instanced mesh
+    (`sphere_emitter`, `instanced_mesh`: outside the port)."""
     if case == "emissive_quad":
+        scene = emissive_box(tmod, mmod, geom)
+        scene.camera = scene.camera.with_resolution(64, 64)
+        return scene
+    if case == "textured_cube":
+        return textured_cubes(64, tmod, mmod, geom)
+    if case in ("sphere_emitter", "instanced_mesh"):
         sb = tmod.cornell_box()
-        quad = tmod.make_plane(
-            tmod.v3(-0.25, -0.25, 1.49), tmod.v3(0.25, -0.25, 1.49),
-            tmod.v3(0.25, 0.25, 1.49), tmod.v3(-0.25, 0.25, 1.49),
-            tmod.v3(0, 0, 1))
         white = sb.add_constant_texture(tmod.v4(1, 1, 1, 1))
         mat = sb.add_material(mmod.Diffuse(albedo=white))
-        sb.add_shape_with_transform(
-            geom.TriangleMesh(quad), mat, geom.Transform.identity(),
-            area_light_radiance=np.array([5.0, 5.0, 5.0], np.float32))
-        sb.add_camera(tmod.Camera.lookat_camera_perspective(
-            tmod.v3(0, 3.4, 0.4), tmod.v3(0, 0, 0.75), tmod.v3(0, 0, 1),
-            False, np.deg2rad(37.8), 64, 64))
+        if case == "sphere_emitter":
+            sb.add_shape_with_transform(
+                geom.Sphere(tmod.v3(0, 0, 0), 0.25), mat,
+                geom.Transform.translate(tmod.v3(0, 0, 0.75)),
+                area_light_radiance=np.array([5.0, 5.0, 5.0], np.float32))
+        else:  # one 18-triangle grid placed twice
+            prims = importlib.import_module(tmod.__name__.rsplit(".", 1)[0])
+            g = np.linspace(-0.2, 0.2, 4)
+            verts = [(x, y, 0.0) for y in g for x in g]
+            tris = [t for j in range(3) for i in range(3) for t in (
+                [4 * j + i, 4 * j + i + 1, 4 * j + i + 5],
+                [4 * j + i + 5, 4 * j + i + 4, 4 * j + i])]
+            grid = sb.add_primitive(prims.BasicPrimitive(
+                shape=geom.TriangleMesh(tmod.make_mesh(
+                    verts, tris, [(0.0, 0.0, 1.0)] * 16)), material=mat))
+            for x in (-0.4, 0.4):
+                t = geom.Transform.translate(tmod.v3(x, 0, 0.3))
+                sb.add_root_child(sb.add_primitive(
+                    prims.TransformPrimitive(primitive=grid, transform=t)))
         return sb.build()
     sb = tmod.SceneBuilder()
     a = sb.add_constant_texture(tmod.v4(1, 0, 0, 1))
@@ -158,21 +178,58 @@ def _built(case):
     return _outside_scene(case, TS, TM, TG), _outside_scene(case, JS, JM, JG)
 
 
+BEYOND_BUILTINS = ("image_texture", "mix_texture", "emissive_quad",
+                   "textured_cube")
+
+
+def _pair(name):
+    """(port scene, JAX scene) of a builtin or an `_outside_scene` case."""
+    return _built(name) if name in BEYOND_BUILTINS + (
+        "sphere_emitter", "instanced_mesh") else _builtin(name)
+
+
 @pytest.mark.parametrize("name", [
     "image_texture",          # image texture
     "mix_texture",            # mix texture
     "checkered_plane",        # checker texture
-    "environment_light",      # environment light
+    "environment_light",      # environment light, NEAREST image
     "emissive_quad",          # area light
+    "textured_cube",          # trilinear pyramid, scale, mix
 ])
+def test_textures_and_lights_byte_identical(name):
+    """compile_scene and from_jax_leaves give JAX's leaves, byte for byte
+    (the mip atlas, texture rows and emitter rows included), and JAX's
+    meta."""
+    port_scene, jax_scene = _pair(name)
+    tds = compile_scene(port_scene, "cpu")
+    jds = jax_compile_scene(jax_scene)
+    jm = dataclasses.asdict(jds.meta)
+    fj = from_jax_leaves(_jax_leaves(jds), jm, "cpu")
+    assert fj.meta == tds.meta
+    for k in LEAF_NAMES:
+        want = np.asarray(getattr(jds, k))
+        assert _same_bytes(want, getattr(tds, k).numpy()), k
+        assert _same_bytes(want, getattr(fj, k).numpy()), k
+    for f in dataclasses.fields(SceneMeta):
+        want = jm[f.name]
+        want = tuple(tuple(x) if isinstance(x, (list, tuple)) else x
+                     for x in want) if isinstance(want, (list, tuple)) else want
+        assert getattr(tds.meta, f.name) == want, f.name
+
+
+@pytest.mark.parametrize("name", ["instanced_mesh", "sphere_emitter"])
 def test_outside_slice_raises(name):
-    builtin = name in ("checkered_plane", "environment_light")
-    port_scene, jax_scene = _builtin(name) if builtin else _built(name)
+    """An instanced mesh (a shared BLAS in JAX: next in ROADMAP.md) and an
+    area light on a sphere (JAX asserts against it) raise on the port."""
+    port_scene, jax_scene = _pair(name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         compile_scene(port_scene, "cpu")
-    jds = jax_compile_scene(jax_scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        from_jax_leaves(_jax_leaves(jds), dataclasses.asdict(jds.meta), "cpu")
+    if name == "instanced_mesh":
+        jds = jax_compile_scene(jax_scene)
+        assert jds.meta.instances
+        with pytest.raises(NotImplementedError, match="Next: instances"):
+            from_jax_leaves(_jax_leaves(jds), dataclasses.asdict(jds.meta),
+                            "cpu")
 
 
 def test_cuda_device_without_card_raises():

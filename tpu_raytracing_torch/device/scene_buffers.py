@@ -6,8 +6,9 @@ numpy code, ported line for line so that every table is byte-identical to
 the JAX scene's leaf of the same name (tests/test_torch_scene.py): the
 traversal tables of every walk the JAX kernel switch selects (bvh8t,
 skip-link, child-pair, BVH4 and its row records), the shading rows, the
-object-space sphere tables, and the material, texture, light and camera
-tables.
+object-space sphere tables, the material and texture tables with the image
+mip atlas, the light tables with the area-light emitter rows, and the
+camera tables.
 
 The scene description it reads (scene, geometry, accel, materials,
 lights) is the port's own copy of the JAX package's host modules; the port
@@ -28,9 +29,10 @@ import torch
 from ..accel import build_bvh
 from ..geometry import Sphere, Transform, TriangleMesh
 from ..geometry.matrix import apply_point as _np_apply_point
-from ..lights import DirectionLight, PointLight
+from ..lights import DiffuseAreaLight, DirectionLight, PointLight
 from ..materials import (
-    CoatedDiffuse, ConstantTexture, Diffuse, RoughConductor, RoughDielectric,
+    CheckerTexture, CoatedDiffuse, ConstantTexture, Diffuse, FilterMode,
+    ImageTexture, MixTexture, RoughConductor, RoughDielectric, ScaleTexture,
     SmoothConductor, SmoothDielectric,
 )
 from ..scene import BasicPrimitive, Scene
@@ -95,6 +97,10 @@ class SceneMeta:
     light_kinds: Tuple[int, ...]
     mat_kinds_present: Tuple[int, ...]
     tex_kinds_present: Tuple[int, ...]
+    any_trilinear: bool
+    any_nearest: bool
+    has_env: bool
+    env_tex: int
     cam_kind: int
     width: int
     height: int
@@ -111,7 +117,9 @@ class SceneMeta:
     t8_stack: int
     t8_width: int
     t8_leaf: int
+    # texture kinds reachable from each material slot / the env texture
     slot_kinds: Tuple[Tuple[int, ...], ...] = ()
+    env_kinds: Tuple[int, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -153,10 +161,18 @@ class DeviceScene:
     mat_remap: torch.Tensor      # (M,) bool remap_roughness
     mat_pack: torch.Tensor       # (M, 8) i32 kind, tex0..4, remap
     mat_tex_rows: torch.Tensor   # (M, 80) f32 the 5 slot texture rows
-    tex_pack: torch.Tensor       # (X, 16) f32 texture rows
+    tex_pack: torch.Tensor       # (X, 16) f32 v0, v1, bits[ref0/first
+                                 # level, ref1, ref2, kind, filter, wrap,
+                                 # n_levels]
+    img_texels: torch.Tensor     # (P, 4) f32 mip atlas, every level
+    lvl_pack: torch.Tensor       # (LV, 4) i32 offset, w, h of each level
     light_kind: torch.Tensor     # (L,) i32
     light_va: torch.Tensor       # (L, 3) position / direction
     light_vb: torch.Tensor       # (L, 3) intensity / radiance
+    light_emit_first: torch.Tensor  # (L,) i32 first em_shade row
+    light_emit_count: torch.Tensor  # (L,) i32 emitter triangles
+    em_shade: torch.Tensor       # (E, 24) f32 p0 p1 p2 n0 n1 n2 area
+                                 # bits(has_n)
     cam_raster_to_camera: torch.Tensor  # (4, 4)
     cam_camera_to_world: torch.Tensor   # (4, 4)
     cam_min_diff: torch.Tensor          # (4, 3)
@@ -750,8 +766,9 @@ def _sphere_tables(scene: Scene):
         if not isinstance(prim.shape, Sphere):
             continue
         if prim.area_light is not None:
-            raise _unsupported("an area light on a sphere",
-                               "Next: area and environment lights")
+            raise _unsupported(
+                "an area light on a sphere",
+                "Not ported: the JAX package asserts against it too")
         mat_id = prim.material if prim.material is not None else 0
         sph.append((prim.shape, t, mat_id))
     n_spheres = len(sph)
@@ -820,24 +837,117 @@ def _material_tables(scene: Scene):
     return mat_kind, mat_tex, mat_remap, tuple(sorted(kinds_present))
 
 
-def _texture_tables(scene: Scene, mat_tex: np.ndarray):
-    if scene.images:
-        raise _unsupported("an image texture",
-                           "Next: image, checker, scale and mix textures")
+def _build_mip_pyramid(data: np.ndarray):
+    """Box-filter mip pyramid over a pow2-square padded copy (JAX
+    compile_scene's pyramid; the reference's Lanczos3 pyramid has the same
+    level structure)."""
+    h, w = data.shape[:2]
+    size = 1 << int(np.ceil(np.log2(max(h, w, 1))))
+    levels = []
+    if (h, w) != (size, size):
+        ys = (np.arange(size) * h // size).clip(0, h - 1)
+        xs = (np.arange(size) * w // size).clip(0, w - 1)
+        cur = data[ys][:, xs]
+    else:
+        cur = data
+    levels.append(cur.astype(F))
+    while cur.shape[0] > 1:
+        cur = (
+            cur[0::2, 0::2] + cur[1::2, 0::2] + cur[0::2, 1::2] + cur[1::2, 1::2]
+        ) * 0.25
+        levels.append(cur.astype(F))
+    return levels
+
+
+def _image_tables(scene: Scene):
+    """The mip atlas: every level of every image, row-major texels, with
+    one (offset, w, h) row a level. Only trilinear-filtered images get a
+    pyramid; the others keep their one level."""
+    trilinear_images = set()
+    any_nearest = False
+    for t in scene.textures:
+        if isinstance(t, ImageTexture):
+            if t.sampler.filter == FilterMode.TRILINEAR:
+                trilinear_images.add(t.image)
+            if t.sampler.filter == FilterMode.NEAREST:
+                any_nearest = True
+
+    texels, level_rows = [], []
+    img_first_level = np.zeros(max(1, len(scene.images)), np.int32)
+    img_n_levels = np.zeros(max(1, len(scene.images)), np.int32)
+    offset = 0
+    for i, img in enumerate(scene.images):
+        if i in trilinear_images:
+            levels = _build_mip_pyramid(img.data)
+        else:
+            levels = [img.data.astype(F)]
+        img_first_level[i] = len(level_rows)
+        img_n_levels[i] = len(levels)
+        for lv in levels:
+            h, w = lv.shape[:2]
+            level_rows.append((offset, w, h))
+            texels.append(lv.reshape(-1, 4))
+            offset += h * w
+    img_texels = (np.concatenate(texels, axis=0).astype(F) if texels
+                  else np.zeros((1, 4), F))
+    lvl_pack = np.zeros((max(1, len(level_rows)), 4), np.int32)
+    lvl_pack[:, 1:3] = 1
+    if level_rows:
+        lvl_pack[:, 0:3] = np.asarray(level_rows, np.int32)
+    return (img_texels, lvl_pack, img_first_level, img_n_levels,
+            bool(trilinear_images), any_nearest)
+
+
+def _texture_tables(scene: Scene, mat_tex: np.ndarray, img_first_level,
+                    img_n_levels, env_tex: int):
+    """(tex_pack, mat_tex_rows, kinds present, the kind sets each material
+    slot reaches, the kind set the env texture reaches) of JAX
+    compile_scene's textures block."""
     n_tex = max(1, len(scene.textures))
     tex_kind = np.full(n_tex, TEX_CONSTANT, np.int32)
-    tex_pack = np.zeros((n_tex, 16), F)
+    tex_v0 = np.zeros((n_tex, 4), F)
+    tex_v1 = np.zeros((n_tex, 4), F)
+    tex_ref = np.full((n_tex, 3), -1, np.int32)
+    tex_filter = np.zeros(n_tex, np.int32)
+    tex_wrap = np.zeros(n_tex, np.int32)
     for i, t in enumerate(scene.textures):
-        if not isinstance(t, ConstantTexture):
-            raise _unsupported(
-                f"texture {type(t).__name__}",
-                "Next: image, checker, scale and mix textures",
-            )
-        tex_pack[i, 0:4] = t.value
-    # int columns: ref0..2 = -1, kind, filter, wrap, n_levels
+        if isinstance(t, ImageTexture):
+            tex_kind[i] = TEX_IMAGE
+            tex_ref[i, 0] = t.image
+            tex_filter[i] = int(t.sampler.filter)
+            tex_wrap[i] = int(t.sampler.wrap)
+        elif isinstance(t, ConstantTexture):
+            tex_v0[i] = t.value
+        elif isinstance(t, CheckerTexture):
+            tex_kind[i] = TEX_CHECKER
+            tex_v0[i] = t.color1
+            tex_v1[i] = t.color2
+        elif isinstance(t, ScaleTexture):
+            tex_kind[i] = TEX_SCALE
+            tex_ref[i, 0:2] = (t.a, t.b)
+        elif isinstance(t, MixTexture):
+            tex_kind[i] = TEX_MIX
+            tex_ref[i] = (t.a, t.b, t.c)
+        else:
+            raise TypeError(f"unknown texture: {t}")
+
+    tex_pack = np.zeros((n_tex, 16), F)
+    tex_pack[:, 0:4] = tex_v0
+    tex_pack[:, 4:8] = tex_v1
+    # int columns: ref0..2, kind, filter, wrap, n_levels; an image row holds
+    # its image's first mip level in ref0 and its level count in n_levels
     ti = np.zeros((n_tex, 8), np.int32)
-    ti[:, 0:3] = -1
+    is_img = tex_kind == TEX_IMAGE
+    # non-image rows read image 0 here and keep their ref0 (JAX reads
+    # image ref0, which faults where a scale or mix child id is past the
+    # last image; the rows it does build are the same)
+    img_id = np.where(is_img, tex_ref[:, 0], 0)
+    ti[:, 0] = np.where(is_img, img_first_level[img_id], tex_ref[:, 0])
+    ti[:, 1:3] = tex_ref[:, 1:3]
     ti[:, 3] = tex_kind
+    ti[:, 4] = tex_filter
+    ti[:, 5] = tex_wrap
+    ti[:, 6] = np.where(is_img, img_n_levels[img_id], 0)
     tex_pack[:, 8:16] = ti.view(F)
 
     # material-major join of the slot rows; unset slots read a synthetic
@@ -852,17 +962,54 @@ def _texture_tables(scene: Scene, mat_tex: np.ndarray):
         rows = tex_pack[np.maximum(mat_tex[:, j], 0)].copy()
         rows[mat_tex[:, j] < 0] = unset_row
         mat_tex_rows[:, 16 * j:16 * (j + 1)] = rows
-    # every texture is a constant, so every slot reaches only that kind
-    slot_kinds = tuple((TEX_CONSTANT,) for _ in range(5))
-    return tex_pack, mat_tex_rows, (TEX_CONSTANT,), slot_kinds
+
+    def reach_kinds(tid0: int) -> set:
+        """Texture kinds reachable from texture `tid0` through scale and
+        mix children."""
+        out, stack, seen = set(), [int(tid0)], set()
+        while stack:
+            t = stack.pop()
+            if t < 0 or t >= n_tex or t in seen:
+                continue
+            seen.add(t)
+            k = int(tex_kind[t])
+            out.add(k)
+            if k in (TEX_SCALE, TEX_MIX):
+                stack.extend(int(r) for r in tex_ref[t] if r >= 0)
+        return out or {TEX_CONSTANT}
+
+    slot_kinds = []
+    for j in range(5):
+        ks = set()
+        for i in range(n_mats):
+            t = int(mat_tex[i, j])
+            if t < 0:
+                ks.add(TEX_CONSTANT)  # the synthetic unset row
+                if j == 0:
+                    # the albedo AOV reads tex_pack[max(tid, 0)] directly
+                    ks |= reach_kinds(0)
+            else:
+                ks |= reach_kinds(t)
+        slot_kinds.append(tuple(sorted(ks)))
+    kinds_present = tuple(sorted({int(k) for k in tex_kind}))
+    env_kinds = (tuple(sorted(reach_kinds(env_tex))) if env_tex >= 0
+                 else (TEX_CONSTANT,))
+    return tex_pack, mat_tex_rows, kinds_present, tuple(slot_kinds), env_kinds
 
 
 def _light_tables(scene: Scene):
+    """Light rows and the area lights' world-space emitter rows (em_shade:
+    p0 p1 p2 n0 n1 n2 area bits(has_n); one zero row of area 1 when no
+    light is an area light)."""
     n_lights = len(scene.lights)
     l_pad = max(1, n_lights)
     light_kind = np.zeros(l_pad, np.int32)
     light_va = np.zeros((l_pad, 3), F)
     light_vb = np.zeros((l_pad, 3), F)
+    emit_first = np.zeros(l_pad, np.int32)
+    emit_count = np.zeros(l_pad, np.int32)
+    em_rows = []
+    em_offset = 0
     kinds = []
     for i, light in enumerate(scene.lights):
         if isinstance(light, PointLight):
@@ -873,16 +1020,41 @@ def _light_tables(scene: Scene):
             light_kind[i] = LIGHT_DIRECTION
             light_va[i] = light.direction
             light_vb[i] = light.radiance
+        elif isinstance(light, DiffuseAreaLight):
+            light_kind[i] = LIGHT_AREA
+            light_vb[i] = light.radiance
+            # _sphere_tables has refused an area light on a sphere
+            mesh = scene.get_basic(light.prim_id).shape.mesh
+            m = np.asarray(light.light_to_world, F)
+            verts = mesh.vertices @ m[:3, :3].T + m[:3, 3]
+            tri = mesh.tris.astype(np.int64)
+            p0, p1, p2 = verts[tri[:, 0]], verts[tri[:, 1]], verts[tri[:, 2]]
+            rows = np.zeros((len(tri), 24), F)
+            rows[:, 0:3], rows[:, 3:6], rows[:, 6:9] = p0, p1, p2
+            if mesh.has_normals:
+                nm = np.linalg.inv(np.asarray(m, np.float64))[:3, :3].T.astype(F)
+                norms = mesh.normals @ nm.T
+                for k in range(3):
+                    rows[:, 9 + 3 * k:12 + 3 * k] = norms[tri[:, k]]
+            rows[:, 18] = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0),
+                                               axis=-1)
+            rows[:, 19] = np.full(len(tri), int(mesh.has_normals),
+                                  np.int32).view(F)
+            em_rows.append(rows)
+            emit_first[i] = em_offset
+            emit_count[i] = len(tri)
+            em_offset += len(tri)
         else:
-            raise _unsupported(
-                f"light {type(light).__name__}",
-                "Next: area and environment lights",
-            )
+            raise TypeError(f"unknown light: {light}")
         kinds.append(int(light_kind[i]))
-    if scene.environment_light is not None:
-        raise _unsupported("an environment light",
-                           "Next: area and environment lights")
-    return light_kind, light_va, light_vb, tuple(kinds)
+    if em_rows:
+        em_shade = np.concatenate(em_rows, axis=0)
+    else:
+        em_shade = np.zeros((1, 24), F)
+        em_shade[:, 18] = 1.0
+    return dict(light_kind=light_kind, light_va=light_va, light_vb=light_vb,
+                light_emit_first=emit_first, light_emit_count=emit_count,
+                em_shade=em_shade), tuple(kinds)
 
 
 def _minimum_differentials(cam) -> np.ndarray:
@@ -927,13 +1099,18 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
     bounds_radius = F(np.linalg.norm(hi - lo) * 0.5)
 
     mat_kind, mat_tex, mat_remap, kinds_present = _material_tables(scene)
-    tex_pack, mat_tex_rows, tex_kinds, slot_kinds = _texture_tables(
-        scene, mat_tex)
+    (img_texels, lvl_pack, img_first_level, img_n_levels, any_trilinear,
+     any_nearest) = _image_tables(scene)
+    env = scene.environment_light
+    env_tex = int(env.radiance) if env is not None else -1
+    tex_pack, mat_tex_rows, tex_kinds, slot_kinds, env_kinds = (
+        _texture_tables(scene, mat_tex, img_first_level, img_n_levels,
+                        env_tex))
     mat_pack = np.zeros((mat_tex.shape[0], 8), np.int32)
     mat_pack[:, 0] = mat_kind
     mat_pack[:, 1:6] = mat_tex
     mat_pack[:, 6] = mat_remap.astype(np.int32)
-    light_kind, light_va, light_vb, light_kinds = _light_tables(scene)
+    lights, light_kinds = _light_tables(scene)
 
     cam = scene.camera
     ct = cam.camera_type
@@ -953,6 +1130,10 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
         light_kinds=light_kinds,
         mat_kinds_present=kinds_present,
         tex_kinds_present=tex_kinds,
+        any_trilinear=any_trilinear,
+        any_nearest=any_nearest,
+        has_env=env is not None,
+        env_tex=env_tex,
         cam_kind=cam_kind,
         width=cam.raster_width,
         height=cam.raster_height,
@@ -970,6 +1151,7 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
         t8_width=T8_WIDTH,
         t8_leaf=T8_LEAF,
         slot_kinds=slot_kinds,
+        env_kinds=env_kinds,
     )
     leaves = dict(
         bvh2_rows=acc["bvh2_rows"], tri_pack=acc["tri_pack"],
@@ -980,7 +1162,7 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
         t8_tris=acc["t8_tris"], tri_shade=_tri_shade_rows(acc["tri"]),
         **sph, mat_kind=mat_kind, mat_tex=mat_tex, mat_remap=mat_remap,
         mat_pack=mat_pack, mat_tex_rows=mat_tex_rows, tex_pack=tex_pack,
-        light_kind=light_kind, light_va=light_va, light_vb=light_vb,
+        img_texels=img_texels, lvl_pack=lvl_pack, **lights,
         cam_raster_to_camera=cam.raster_to_camera.forward,
         cam_camera_to_world=cam.camera_to_world.forward,
         cam_min_diff=_minimum_differentials(cam),
@@ -1015,15 +1197,6 @@ def from_jax_leaves(leaves: dict, meta: dict, device) -> DeviceScene:
         raise _unsupported(
             "a scene whose bvh8t tables JAX splits into VMEM chunks",
             "Not ported: bvh8t VMEM chunking")
-    if meta["has_env"]:
-        raise _unsupported("an environment light",
-                           "Next: area and environment lights")
-    if LIGHT_AREA in meta["light_kinds"]:
-        raise _unsupported("light DiffuseAreaLight",
-                           "Next: area and environment lights")
-    if set(meta["tex_kinds_present"]) - {TEX_CONSTANT}:
-        raise _unsupported("a non-constant texture",
-                           "Next: image, checker, scale and mix textures")
     fields = {f.name for f in dataclasses.fields(SceneMeta)}
     m = SceneMeta(**{k: _freeze(v) for k, v in meta.items() if k in fields})
     return _to_device({k: leaves[k] for k in LEAF_NAMES}, m, device)

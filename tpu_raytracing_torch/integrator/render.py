@@ -15,9 +15,10 @@ path's output, tests/test_trace_modes.py). Semantics:
 `rays_traced` counts as JAX does: lanes alive at the top of each bounce
 plus the shadow rays actually walked.
 
-First-hit AOVs (normals, albedo, uv) come from one pass of unjittered
-camera rays before the beauty pass, as in JAX; the mip-level AOV needs the
-image textures and raises.
+Rays that miss add the environment's radiance where the scene has one.
+
+First-hit AOVs (normals, albedo, uv, mip level) come from one pass of
+unjittered camera rays before the beauty pass, as in JAX.
 """
 from __future__ import annotations
 
@@ -36,10 +37,14 @@ from ..device.scene_buffers import (
 from ..ops import bsdf as B
 from ..ops.bsdf_dispatch import bsdf_eval, bsdf_sample
 from ..ops.camera_rays import generate_rays
-from ..ops.light_sampling import light_emitted_radiance, sample_light
+from ..ops.light_sampling import (
+    environment_radiance, light_emitted_radiance, sample_light,
+)
 from ..ops.linalg import dot, make_orthonormal_basis
 from ..ops.rng import SamplerConfig, make_stream
-from ..ops.textures import EvalCtx, eval_ctx_from_differentials, eval_texture
+from ..ops.textures import (
+    EvalCtx, eval_ctx_from_differentials, eval_texture, texture_mip_level,
+)
 from ..ops.traverse import hit_details, intersect_scene, occluded
 from ..settings import AovFlags, RaytracerSettings, RenderOutput
 
@@ -118,7 +123,12 @@ def _bounce(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
         torch.full((Bb,), t_max, dtype=f32, device=dev),
         active=alive,
     )
-    alive = alive & (prim >= 0)
+    hit_mask = prim >= 0
+    if ds.meta.has_env:
+        miss = alive & ~hit_mask
+        radiance = radiance + torch.where(
+            miss[:, None], pw * environment_radiance(ds, ray_d), 0.0)
+    alive = alive & hit_mask
     hit = hit_details(ds, ray_o, ray_d, t, prim)
 
     add_zero_bounce = st.accumulate_bounces or st.max_ray_depth == depth
@@ -244,12 +254,14 @@ def render_beauty_chunk(ds: DeviceScene, cfg: SamplerConfig,
 
 
 def render_aov_chunk(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
-                     px, py, albedo: bool = True):
+                     px, py, albedo: bool = True, mip_level: bool = True):
     """First-hit AOVs of one pixel chunk from unjittered camera rays:
-    (normals (B, 3), albedo (B, 3), uv (B, 2)), zero where nothing is hit.
-    Albedo is the albedo texture of diffuse and coated materials and white
-    for the others (materials.rs get_albedo); with `albedo` false it is
-    zero and no texture is evaluated."""
+    (normals (B, 3), albedo (B, 3), uv (B, 2), mip level (B,)), zero where
+    nothing is hit. Albedo is the albedo texture of diffuse and coated
+    materials and white for the others (materials.rs get_albedo); the mip
+    level is that of a diffuse material's albedo texture where it is a
+    trilinear image (materials.rs get_mip_level). An AOV whose flag is
+    false is zero, and no texture work runs for it."""
     stream = make_stream(px, py, 0)
     ray_o, ray_d, diff, stream = generate_rays(
         ds, px, py, cfg, stream, st.samples_per_pixel, jitter=False)
@@ -263,20 +275,30 @@ def render_aov_chunk(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
     h1 = hit.hit[:, None]
     normals = torch.where(h1, hit.normal, 0.0)
     uv = torch.where(h1, hit.uv, 0.0)
-    if not albedo:
-        return normals, torch.zeros_like(normals), uv
+    alb = torch.zeros_like(normals)
+    mip = torch.zeros(B_, dtype=torch.float32, device=dev)
+    if not (albedo or mip_level):
+        return normals, alb, uv, mip
     ctx = eval_ctx_from_differentials(hit, ray_o, ray_d, diff)
     ctx = EvalCtx(uv=hit.uv, **{
         k: torch.where(hit.hit, getattr(ctx, k), 0.0)
         for k in ("dudx", "dudy", "dvdx", "dvdy")})
     mat = torch.clamp(hit.material, min=0).long()
     kind = ds.mat_kind[mat]
-    sk = ds.meta.slot_kinds
-    sampled = eval_texture(ds, ds.mat_tex[mat, 0], ctx,
-                           kinds=sk[0] if sk else None)[:, :3]
-    has_albedo = (kind == MAT_DIFFUSE) | (kind == MAT_COATED_DIFFUSE)
-    alb = torch.where(has_albedo[:, None], sampled, 1.0)
-    return normals, torch.where(h1, alb, 0.0), uv
+    albedo_tex = ds.mat_tex[mat, 0]
+    if albedo:
+        sk = ds.meta.slot_kinds
+        sampled = eval_texture(ds, albedo_tex, ctx,
+                               kinds=sk[0] if sk else None)[:, :3]
+        has_albedo = (kind == MAT_DIFFUSE) | (kind == MAT_COATED_DIFFUSE)
+        alb = torch.where(h1, torch.where(has_albedo[:, None], sampled, 1.0),
+                          0.0)
+    if mip_level:
+        diffuse = kind == MAT_DIFFUSE
+        level, valid = texture_mip_level(
+            ds, torch.where(diffuse, albedo_tex, -1), ctx)
+        mip = torch.where(hit.hit & valid & diffuse, level, 0.0)
+    return normals, alb, uv, mip
 
 
 def _interleave_bits(v: np.ndarray) -> np.ndarray:
@@ -329,10 +351,6 @@ def render(scene_or_device, settings: RaytracerSettings, device="cuda",
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(device='cuda'): no CUDA device")
-    if settings.outputs & AovFlags.MIP_LEVEL:
-        raise NotImplementedError(
-            "the mip-level AOV is outside the ported slice (ROADMAP.md: "
-            "Next: image, checker, scale and mix textures)")
     if isinstance(scene_or_device, DeviceScene):
         ds = scene_or_device
         if ds.device.type != device.type:
@@ -351,10 +369,12 @@ def render(scene_or_device, settings: RaytracerSettings, device="cuda",
     if settings.outputs & AovFlags.FIRST_HIT_AOVS:
         t0 = time.perf_counter()
         want_albedo = bool(settings.outputs & AovFlags.ALBEDO)
+        want_mip = bool(settings.outputs & AovFlags.MIP_LEVEL)
         parts = [[r[:size] for r in res] for size, res in _run_chunked(
-            lambda a, b, act: render_aov_chunk(ds, cfg, st, a, b, want_albedo),
+            lambda a, b, act: render_aov_chunk(ds, cfg, st, a, b, want_albedo,
+                                               want_mip),
             px, py, device, chunk)]
-        normals, albedo, uv = (
+        normals, albedo, uv, mip = (
             torch.cat(p).cpu().numpy()[unmorton] for p in zip(*parts))
         log.info("aov pass took %.3fs", time.perf_counter() - t0)
         if settings.outputs & AovFlags.NORMALS:
@@ -363,6 +383,8 @@ def render(scene_or_device, settings: RaytracerSettings, device="cuda",
             out.albedo = albedo.reshape(height, width, 3)
         if settings.outputs & AovFlags.UV_COORDS:
             out.uv = uv.reshape(height, width, 2)
+        if want_mip:
+            out.mip_level = mip.reshape(height, width)
     if not settings.outputs & AovFlags.BEAUTY:
         return out
     t0 = time.perf_counter()

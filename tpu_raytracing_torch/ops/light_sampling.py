@@ -1,11 +1,17 @@
-"""Batched light sampling.
+"""Batched light sampling and environment lighting.
 
-Counterpart of tpu_raytracing/ops/light_sampling.py for point and
-direction lights. Shadow rays run from the light toward the shading point,
-and occlusion is tested on t in [1e-3, distance - 1e-3].
+Counterpart of tpu_raytracing/ops/light_sampling.py: point, direction and
+area lights, and the environment lookup of rays that miss. Shadow rays run
+from the light toward the shading point, and occlusion is tested on t in
+[1e-3, distance - 1e-3].
+
+The area-light pdf keeps the JAX package's grouping, pdf_area * d^2 /
+cos(theta) with the emitter's world-space area (PARITY.md 2.2 records how
+it differs from the reference renderer).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -13,8 +19,9 @@ import torch
 from ..device.scene_buffers import (
     DeviceScene, LIGHT_AREA, LIGHT_DIRECTION, LIGHT_POINT,
 )
-from .linalg import norm, normalize
-from .rng import SampleStream, SamplerConfig
+from .linalg import cross, dot, norm, normalize
+from .rng import SampleStream, SamplerConfig, sample_uniform, sample_uniform2
+from .textures import EvalCtx, eval_texture
 
 
 class LightSample(NamedTuple):
@@ -57,9 +64,43 @@ def sample_light(ds: DeviceScene, light_index: int, point,
             pdf=ones,
         ), stream
 
-    raise NotImplementedError(
-        "area lights are outside the ported slice (ROADMAP.md: Next: area "
-        "and environment lights)")
+    assert kind == LIGHT_AREA
+    n_tris = ds.light_emit_count[li]
+    u_tri, stream = sample_uniform(cfg, stream)
+    tri_rel = torch.minimum(
+        (u_tri * n_tris.to(torch.float32)).to(torch.int32), n_tris - 1)
+    idx = ds.light_emit_first[li] + tri_rel
+    u, stream = sample_uniform2(cfg, stream)
+    # low-distortion square -> triangle mapping
+    u0, u1 = u[:, 0], u[:, 1]
+    lt = u0 < u1
+    b0 = torch.where(lt, u0 / 2.0, u0 - u1 / 2.0)
+    b1 = torch.where(lt, u1 - u0 / 2.0, u1 / 2.0)
+    b2 = 1.0 - b0 - b1
+
+    sh = ds.em_shade[idx.long()]
+    p0, p1, p2 = sh[:, 0:3], sh[:, 3:6], sh[:, 6:9]
+    p_world = b0[:, None] * p0 + b1[:, None] * p1 + b2[:, None] * p2
+    dir_world = point - p_world
+    d = norm(dir_world)
+    safe_d = torch.where(d == 0.0, 1.0, d)
+    dir_unit = dir_world / safe_d[:, None]
+
+    n_interp = (b0[:, None] * sh[:, 9:12] + b1[:, None] * sh[:, 12:15]
+                + b2[:, None] * sh[:, 15:18])
+    n_geo = normalize(cross(p2 - p0, p1 - p0))
+    has_n = sh[:, 19].contiguous().view(torch.int32) != 0
+    n = torch.where(has_n[:, None], normalize(n_interp), n_geo)
+
+    cos = dot(dir_unit, n)
+    radiance = torch.where((cos < 0.0)[:, None], 0.0,
+                           ds.light_vb[li].expand(point.shape))
+    area = sh[:, 18]
+    safe_cos = torch.clamp(torch.abs(cos), min=1e-9)
+    pdf = ((1.0 / n_tris.to(torch.float32))
+           * (1.0 / torch.clamp(area, min=1e-20)) * (d * d) / safe_cos)
+    return LightSample(radiance=radiance, origin=p_world, direction=dir_unit,
+                       distance=d, pdf=pdf), stream
 
 
 def light_emitted_radiance(ds: DeviceScene, light_idx):
@@ -68,3 +109,15 @@ def light_emitted_radiance(ds: DeviceScene, light_idx):
     is_area = ds.light_kind[li] == LIGHT_AREA
     return torch.where(((light_idx >= 0) & is_area)[:, None], ds.light_vb[li],
                        0.0)
+
+
+def environment_radiance(ds: DeviceScene, direction):
+    """Spherical lat-long environment lookup of directions (B, 3)."""
+    d = normalize(direction)
+    t = torch.acos(torch.clamp(d[..., 2], -1.0, 1.0)) / math.pi
+    s = (torch.atan2(d[..., 0], d[..., 1]) + math.pi) / (2.0 * math.pi)
+    ctx = EvalCtx.without_antialiasing(torch.stack([s, t], dim=-1))
+    tid = torch.full(direction.shape[:-1], ds.meta.env_tex,
+                     dtype=torch.int32, device=direction.device)
+    return eval_texture(ds, tid, ctx, has_derivs=False,
+                        kinds=ds.meta.env_kinds)[..., :3]
