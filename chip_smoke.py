@@ -19,7 +19,7 @@ Phases (any failure exits nonzero and prints no result):
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel (launch counts reset
    just before, read just after). A copy of every ray batch the frame hands
-   the walk is kept for phase 9;
+   the walk is kept for phase 10;
 5. slice parity: two blocks of 4,096 Morton-order pixels (2 spp, depth 8),
    one of walls and floor and one mostly on the bunny, on cuda with the
    kernels against cpu with the plain versions;
@@ -47,7 +47,21 @@ Phases (any failure exits nonzero and prints no result):
    t_max) held against the plain walk, then timed and bounded; and the
    textured cubes' albedo and mip-level AOVs at 400x400 on cuda against
    cpu;
-8. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
+8. cli and scene files: a glTF file of the port's bunny mesh under four
+   node transforms (four instances over one BLAS) on a two-triangle floor,
+   with a camera node and a point light, rendered by
+   `tpu_raytracing_torch.cli` (`full --scene-path`, 600x600 at the
+   loader's raster, 8 spp, depth 8, one light sample) on cuda, launch
+   counts reset just before and read just after (1 + 4 walks a query, as
+   many any-hit launches as closest-hit) and each walk call timed by CUDA
+   events; its EXR read back bit for bit; a 1,024-pixel block at 2 spp on
+   cuda against cpu; the same scene with each bunny its own mesh (all
+   baked world-space) within an MSE of 1e-6 of it; bounce 1's first
+   instance batch of each mode held against the plain walk on the BLAS
+   view, then timed and bounded by the BLAS's own tables; `pixel` on cuda
+   against cpu; and `--checkpoint --spp-chunk 3` against the one-shot
+   frame;
+9. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
    cost), P4 (bf16 slab), P2 (slab cost) and P1 (walk-visit ablation), at
    the scripts' counts (P1 at 4,096 visits, not the script's 200,000: its
    plain version takes about a millisecond a visit), their launch counts
@@ -56,7 +70,7 @@ Phases (any failure exits nonzero and prints no result):
    launch of its kernel on the same inputs (P3 also on small-id inputs;
    P2 and P1 in their outputs, stats and every visit's drained mask, and
    also on a second seeded input set whose drains vary);
-9. device times and the frame's traversal: every walk's kernel time alone
+10. device times and the frame's traversal: every walk's kernel time alone
    at the path's shape, from torch.profiler's kernel events; the frame's
    bounce-2 batches (closest-hit and its shadow rays) held against the plain
    walk and timed like the camera rays; then all of the frame's bvh8t
@@ -75,6 +89,7 @@ import dataclasses
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -111,7 +126,9 @@ KERNEL_OF = {"bvh8t": "bvh8t_walk", "brute": "t8_brute", "quad": "quad_walk",
 # the card's bound (H100 SXM datasheet peaks at 700 W): bytes
 # over 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is longer.
 # Bytes: o, d, t_min, t_max, active in (33 B) and t, best out (8 B) per
-# ray, plus the words of the scene tables the query needs (table_words).
+# active ray; t_max, active in (5 B) and t, best out (8 B) per inactive
+# ray, whose origin, direction and t_min no walk loads; plus the words of
+# the scene tables the query needs (table_words).
 # Operations, from the kernels' own counters, which count real triangles
 # and real child boxes only: 24 per slab test (6 subtracts, 6 multiplies,
 # 12 min/max) and 44 per Moller-Trumbore test (24 multiplies, 17 adds or
@@ -119,6 +136,7 @@ KERNEL_OF = {"bvh8t": "bvh8t_walk", "brute": "t8_brute", "quad": "quad_walk",
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 RAY_BYTES = 33 + 8
+IDLE_RAY_BYTES = 5 + 8
 SLAB_OPS = 24
 MT_OPS = 44
 N_RANDOM_RAYS = 65536
@@ -188,7 +206,19 @@ TEXTURE_FRAMES = {
 }
 TEXTURE_MIN_CLOSE = 0.98
 TEXTURED_CUBES = 400  # the textured cubes' AOV frame, pixels a side
-# the probes (phase 8): name, source, the Pallas probe it replaces. One SM
+# the cli phase (phase 8): the bench path's settings on the glTF frame; the
+# first pixel of its 32x32 block held against cpu (all on the front-left
+# bunny) and the pixel `pixel` replays; the block's least share within
+# PARITY_PIXEL_RTOL (PR 7/8's), the instanced frame's MSE against the
+# baked one (tests/test_instancing.py's), and the checkpointed frame's
+# tolerance against the one-shot one (tests/test_accumulate.py's)
+CLI_FLAGS = ("-s", "8", "-d", "8", "-l", "1")
+CLI_BLOCK = (128, 320)
+CLI_PIXEL = (144, 336)
+CLI_MIN_CLOSE = 0.999
+CLI_MAX_MSE = 1e-6
+CHECKPOINT_RTOL, CHECKPOINT_ATOL = 1e-5, 1e-6
+# the probes (phase 9): name, source, the Pallas probe it replaces. One SM
 # runs each, by design, so a bound's share of one SM is its card share
 # times the SMs.
 PROBE_KERNELS = (
@@ -429,14 +459,17 @@ def bound_entry(ops: float, nbytes: float, ops_per_s: float) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound(ds, walk, counts, n_rays):
+def bound(ds, walk, counts, active):
     """(bound_ms, bound_by, visits, boxes, tests per live ray) of one
-    launch, from its per-ray counters."""
+    launch, from its per-ray counters and the batch's `active` mask."""
     c = counts.to(torch.int64)
     live = c[:, 0] > 0
     tot = c.sum(dim=0).tolist()
     n_live = max(int(live.sum()), 1)
-    nbytes = n_rays * RAY_BYTES + 4 * table_words(ds, walk)
+    n_active = int(active.sum())
+    nbytes = (n_active * RAY_BYTES
+              + (active.numel() - n_active) * IDLE_RAY_BYTES
+              + 4 * table_words(ds, walk))
     ops = tot[1] * SLAB_OPS + tot[2] * MT_OPS
     return (*bound_entry(ops, nbytes, FP32_OPS_PER_S),
             tot[0] / n_live, tot[1] / n_live, tot[2] / n_live)
@@ -513,7 +546,8 @@ def hold_and_time(ds, walk, kernel, plain, held, shape, label) -> tuple:
     n = shape[0].shape[0]
     counts = torch.zeros((n, 3), dtype=torch.int32, device=shape[0].device)
     kernel(ds, *shape, counts=counts)
-    bound_ms, bound_by, visits, boxes, tests = bound(ds, walk, counts, n)
+    bound_ms, bound_by, visits, boxes, tests = bound(ds, walk, counts,
+                                                      shape[4])
     ms = time_ms(lambda: kernel(ds, *shape), reps=20)
     plain_ms = time_ms(lambda: plain(ds, *shape), reps=1, warmup=False)
     print(f"# {walk} {mode}{label} timed ({n} rays, "
@@ -561,11 +595,16 @@ def launch_counts() -> dict:
 
 
 @contextlib.contextmanager
-def kept_batches(walk: str, store: list, calls=None):
+def kept_batches(walk: str, store: list, calls=None, accels=None,
+                 spans=None):
     """Keep a copy of every ray batch the kernel switch hands `walk` in the
     block (or of the `calls`-th ones only, counted from 0), as (origin,
-    direction, t_min, t_max, active, early_exit); the walk's own wrapper
-    still runs and counts its launches."""
+    direction, t_min, t_max, active, early_exit), and the accel it walks
+    in `accels` where given; where `spans` is given, bracket every call of
+    the walk with CUDA events and append (the accel is a BLAS, mode, start
+    event, end event) to it. The walk's own wrapper still runs and counts
+    its launches."""
+    from tpu_raytracing_torch.device.scene_buffers import BlasTables
     from tpu_raytracing_torch.ops import traverse_kernels as TK
 
     fn = TK.WALKS[walk]
@@ -575,8 +614,19 @@ def kept_batches(walk: str, store: list, calls=None):
         if calls is None or seen[0] in calls:
             store.append((*(x.clone() for x in (origin, direction, t_min,
                                                  t_max, active)), early_exit))
+            if accels is not None:
+                accels.append(ds)
         seen[0] += 1
-        return fn(ds, origin, direction, t_min, t_max, active, early_exit)
+        if spans is None:
+            return fn(ds, origin, direction, t_min, t_max, active, early_exit)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn(ds, origin, direction, t_min, t_max, active, early_exit)
+        end.record()
+        spans.append((isinstance(ds, BlasTables),
+                      "any_hit" if early_exit else "closest_hit", start, end))
+        return res
 
     TK.WALKS[walk] = keep
     try:
@@ -793,7 +843,7 @@ def sphere_cut_effect(ds, settings, card: str) -> tuple:
               f"{report}: {'ok' if b_ok else 'FAIL'}", flush=True)
         counts = torch.zeros((n, 3), dtype=torch.int32, device=dev)
         kernel(ds, *b, counts=counts)
-        bound_ms, _, visits, boxes, tests = bound(ds, "bvh8t", counts, n)
+        bound_ms, _, visits, boxes, tests = bound(ds, "bvh8t", counts, b[4])
         out[label] = dict(live=int((counts[:, 0] > 0).sum()), ms=[],
                           max_abs_err=err, visits_per_ray=visits,
                           box_tests_per_ray=boxes, tri_tests_per_ray=tests,
@@ -982,6 +1032,136 @@ def textured_cubes(size: int, tmod=None, mmod=None, geom=None):
     return sb.build()
 
 
+def _lookat_matrix(eye, target, up) -> np.ndarray:
+    """Row-major camera-to-world matrix of a glTF camera node (it looks
+    down its local -z, +y up) at `eye` facing `target`."""
+    eye, target, up = (np.asarray(v, np.float64) for v in (eye, target, up))
+    back = eye - target
+    back /= np.linalg.norm(back)
+    right = np.cross(up, back)
+    right /= np.linalg.norm(right)
+    m = np.eye(4)
+    m[:3, 0], m[:3, 1], m[:3, 2] = right, np.cross(back, right), back
+    m[:3, 3] = eye
+    return m
+
+
+def write_glb(path, meshes, nodes, materials, camera, light) -> None:
+    """Write a binary glTF 2.0 scene that both packages' loaders read.
+
+    meshes: (vertices (V, 3), normals (V, 3), triangles (T, 3), material
+    index) each; nodes: (mesh index, row-major 4x4 matrix) each, in scene
+    order, the camera node and the light node after them; materials: the
+    base colour (r, g, b) of a diffuse material each; camera: (eye, target,
+    up, yfov in radians), aspect 1; light: a KHR_lights_punctual point light
+    (position, colour, intensity). Two nodes that name one mesh make the
+    loader emit one primitive under two transforms (an instance)."""
+    blob = bytearray()
+    views, accessors, gmeshes = [], [], []
+
+    def add(arr, target_type, acc_type, comp):
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": arr.nbytes})
+        blob.extend(arr.tobytes())
+        acc = {"bufferView": len(views) - 1, "componentType": comp,
+               "count": int(arr.shape[0]), "type": acc_type}
+        if target_type == "POSITION":
+            acc["min"] = arr.min(axis=0).tolist()
+            acc["max"] = arr.max(axis=0).tolist()
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    for verts, norms, tris, mat in meshes:
+        pos = add(np.ascontiguousarray(verts, np.float32), "POSITION",
+                  "VEC3", 5126)
+        nrm = add(np.ascontiguousarray(norms, np.float32), "NORMAL",
+                  "VEC3", 5126)
+        idx = add(np.ascontiguousarray(tris, np.uint32).reshape(-1, 1),
+                  "", "SCALAR", 5125)
+        gmeshes.append({"primitives": [{
+            "attributes": {"POSITION": pos, "NORMAL": nrm},
+            "indices": idx, "material": int(mat)}]})
+    gnodes = [{"mesh": int(mi),
+               "matrix": np.asarray(m, np.float64).T.reshape(-1).tolist()}
+              for mi, m in nodes]
+    eye, target, up, yfov = camera
+    gnodes.append({"camera": 0, "matrix": _lookat_matrix(eye, target, up)
+                   .T.reshape(-1).tolist()})
+    pos, color, intensity = light
+    gnodes.append({"translation": [float(v) for v in pos],
+                   "extensions": {"KHR_lights_punctual": {"light": 0}}})
+    tree = {
+        "asset": {"version": "2.0"},
+        "extensionsUsed": ["KHR_lights_punctual"],
+        "extensions": {"KHR_lights_punctual": {"lights": [{
+            "type": "point", "color": [float(c) for c in color],
+            "intensity": float(intensity)}]}},
+        "scene": 0,
+        "scenes": [{"nodes": list(range(len(gnodes)))}],
+        "nodes": gnodes,
+        "meshes": gmeshes,
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": [float(c) for c in rgb] + [1.0],
+            "metallicFactor": 0.0, "roughnessFactor": 1.0}}
+            for rgb in materials],
+        "cameras": [{"type": "perspective", "perspective": {
+            "yfov": float(yfov), "aspectRatio": 1.0, "znear": 0.01,
+            "zfar": 100.0}}],
+        "buffers": [{"byteLength": len(blob)}],
+        "bufferViews": views,
+        "accessors": accessors,
+    }
+    js = json.dumps(tree).encode()
+    js += b" " * (-len(js) % 4)
+    blob.extend(b"\0" * (-len(blob) % 4))
+    chunks = (struct.pack("<II", len(js), 0x4E4F534A) + js
+              + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(chunks)))
+        f.write(chunks)
+
+
+def _z_turn(deg: float, scale: float, x: float, y: float) -> np.ndarray:
+    """Row-major matrix: a turn about +z, a uniform scale, a shift in xy."""
+    a = np.deg2rad(deg)
+    m = np.eye(4)
+    m[:2, :2] = scale * np.array([[np.cos(a), -np.sin(a)],
+                                  [np.sin(a), np.cos(a)]])
+    m[2, 2] = scale
+    m[:2, 3] = x, y
+    return m
+
+
+# the cli phase's four bunnies: (turn about z in degrees, scale, x, y)
+BUNNY_NODES = ((0.0, 1.0, -0.55, -0.35), (90.0, 0.8, 0.55, -0.35),
+               (200.0, 0.9, -0.5, 0.55), (300.0, 1.1, 0.5, 0.6))
+
+
+def bunnies_glb(path, instanced: bool) -> None:
+    """The cli phase's scene: the port's bunny mesh (28,576 triangles)
+    under the four transforms of BUNNY_NODES on a 3 x 3 two-triangle floor,
+    a camera above the front edge and one point light, diffuse materials.
+    instanced: the four nodes name one mesh (four instances over one
+    BLAS); else each names its own mesh entry, and all is baked
+    world-space."""
+    from tpu_raytracing_torch.scene.test_scenes import load_bunny
+
+    b = load_bunny()
+    bunny = (b.vertices, b.normals, b.tris, 0)
+    floor = (np.array([[-1.5, -1.5, 0], [1.5, -1.5, 0], [1.5, 1.5, 0],
+                       [-1.5, 1.5, 0]]), np.tile([[0.0, 0.0, 1.0]], (4, 1)),
+             np.array([[0, 1, 2], [0, 2, 3]]), 1)
+    n = len(BUNNY_NODES)
+    meshes = [floor] + [bunny] * (1 if instanced else n)
+    nodes = [(0, np.eye(4))] + [(1 if instanced else 1 + k, _z_turn(*xf))
+                                for k, xf in enumerate(BUNNY_NODES)]
+    write_glb(path, meshes, nodes, materials=[(0.8, 0.3, 0.2),
+                                              (0.7, 0.7, 0.7)],
+              camera=((0.0, -2.8, 1.6), (0.0, 0.1, 0.3), (0.0, 0.0, 1.0),
+                      np.deg2rad(45.0)),
+              light=((0.6, -1.0, 2.6), (1.0, 1.0, 1.0), 20.0))
+
+
 def area_shadow_call(ds, settings) -> int:
     """The index, among the walk calls of a frame, of bounce 1's first
     area-light shadow batch in sample 0. A bounce makes one closest-hit
@@ -1155,6 +1335,212 @@ def area_shadow_batch(ds, store, kernel, plain) -> tuple:
     held_ok, stats = hold_and_time(ds, "bvh8t", kernel, plain, batch, batch,
                                    " area-light shadow batch")
     return shape_ok and held_ok, dict(stats, live=int(act.sum()))
+
+
+def pixel_lines(argv) -> list:
+    """Run the CLI's pixel command; per sample (hit, uv, normal,
+    radiance) as it prints them."""
+    import io
+
+    from tpu_raytracing_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    if code != 0:
+        raise AssertionError(f"pixel {argv}: exit code {code}")
+    text = buf.getvalue()
+    vec = lambda key: [np.array([float(v) for v in m.split(", ")])  # noqa: E731
+                       for m in re.findall(rf"{key}: \(([^)]*)\)", text)]
+    return list(zip(re.findall(r"hit: (\w+)", text), vec("uv"),
+                    vec("normal"), vec("radiance")))
+
+
+def phase_cli(card: str) -> dict:
+    """The CLI on glTF files (phase 8): the four bunnies over one BLAS
+    through `cli.run(["full", ...])` at the loader's 600x600, launch counts
+    reset just before and read just after, each walk call timed by CUDA
+    events; its EXR read back; a 1,024-pixel block on cuda against cpu; the
+    baked scene's frame against it; bounce 1's first BLAS batch (instance
+    0) of each mode held against the plain walk on the BLAS view, timed and
+    bounded; `pixel` on cuda against cpu; and `--checkpoint` with
+    `--spp-chunk 3` against the one-shot frame. Returns its launches and
+    the BLAS batches' stats."""
+    import shutil
+    import tempfile
+
+    from tpu_raytracing_torch import cli
+    from tpu_raytracing_torch.device import compile_scene
+    from tpu_raytracing_torch.integrator.render import (
+        StaticSettings, _pixel_grid, render_beauty_chunk,
+    )
+    from tpu_raytracing_torch.ops.rng import SamplerConfig
+    from tpu_raytracing_torch.ops.traverse_bvh8t import intersect_tris_plain
+    from tpu_raytracing_torch.ops.traverse_kernels import (
+        WALKS, reset_launch_counts,
+    )
+    from tpu_raytracing_torch.scene import scene_from_file
+    from tpu_raytracing_torch.settings import RaytracerSettings
+    from tpu_raytracing_torch.utils.exr import read_exr
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        paths = {}
+        for instanced in (True, False):
+            paths[instanced] = os.path.join(tmp, f"{instanced}.glb")
+            bunnies_glb(paths[instanced], instanced)
+
+        def full(instanced, name, *extra):
+            return cli.run(["full", "--scene-path", paths[instanced],
+                            *CLI_FLAGS, "-o", name, *extra])
+
+        per = 1 + len(BUNNY_NODES)  # walks a query: main + each instance
+        store, accels, spans = [], [], []
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with kept_batches("bvh8t", store, {2 * per + 1, 3 * per + 1},
+                          accels, spans):
+            code, out = full(True, "cli_instanced.exr")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()["bvh8t"]
+        dev = {(blas, mode): sum(s.elapsed_time(e) for b, m, s, e in spans
+                                 if (b, m) == (blas, mode))
+               for blas in (False, True) for mode in launches}
+        n_blas = {m: sum(1 for b, mm, _, _ in spans if b and mm == m)
+                  for m in launches}
+        img = out.beauty
+        mean = float(img.mean())
+        frame_ok = (code == 0 and bool(np.isfinite(img).all()) and mean > 0
+                    and launches["closest_hit"] > 0
+                    and launches["closest_hit"] % per == 0
+                    and launches["any_hit"] == launches["closest_hit"]
+                    and n_blas["closest_hit"] * per
+                    == (per - 1) * launches["closest_hit"])
+        print(f"# cli frame (instanced glTF, {len(BUNNY_NODES)} instances "
+              f"over one BLAS): {img.shape[1]}x{img.shape[0]}, "
+              f"{' '.join(CLI_FLAGS)}: {wall:.3f} s wall (scene load and "
+              f"compile included), {out.rays_traced} rays, "
+              f"{out.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; mean "
+              f"{mean:.6g}; bvh8t launches {launches}, on the BLAS "
+              f"{n_blas} ({per} walks a query); traversal device time by "
+              f"CUDA events: closest-hit {dev[False, 'closest_hit']:.3f} ms "
+              f"main + {dev[True, 'closest_hit']:.3f} ms BLAS, any-hit "
+              f"{dev[False, 'any_hit']:.3f} + {dev[True, 'any_hit']:.3f} ms: "
+              f"{'ok' if frame_ok else 'FAIL'}", flush=True)
+
+        channels, w, h = read_exr(os.path.join("scenes", "output",
+                                               "cli_instanced.exr"))
+        exr_ok = (w, h) == (img.shape[1], img.shape[0]) and all(
+            channels[c].tobytes() == np.ascontiguousarray(img[..., k])
+            .tobytes() for k, c in enumerate("RGB"))
+        print(f"# cli frame's EXR read back ({sorted(channels)}): "
+              f"{'bit-equal' if exr_ok else 'DIFFERS'}", flush=True)
+
+        # one 1,024-pixel block on the front bunny, cuda against cpu
+        scene = scene_from_file(paths[True])
+        s = RaytracerSettings(samples_per_pixel=2, light_sample_count=1,
+                              max_ray_depth=8)
+        cfg = SamplerConfig.from_settings(s.sampler, s.seed)
+        st = StaticSettings.from_settings(s)
+        px, py, _ = _pixel_grid(scene.camera.raster_width,
+                                scene.camera.raster_height)
+        x0, y0 = CLI_BLOCK
+        start = int(np.nonzero((px == x0) & (py == y0))[0][0])
+        sel = slice(start, start + SCENE_BLOCK)
+        blk = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            r, n = render_beauty_chunk(
+                compile_scene(scene, d), cfg, st,
+                torch.from_numpy(px[sel].astype(np.int64)).to(d),
+                torch.from_numpy(py[sel].astype(np.int64)).to(d),
+                torch.ones(SCENE_BLOCK, dtype=torch.bool, device=d))
+            blk[d] = (r.cpu().numpy(), int(n), time.perf_counter() - t0)
+        (g, ng, tg), (c, nc, tc) = blk["cuda"], blk["cpu"]
+        close, mean_rel, rays_rel = parity(g, ng, c, nc)
+        block_ok = (close >= CLI_MIN_CLOSE and mean_rel <= PARITY_MEAN_RTOL
+                    and rays_rel <= PARITY_RAYS_RTOL
+                    and bool(np.isfinite(g).all()))
+        print(f"# cli block ({SCENE_BLOCK} pixels from ({x0}, {y0}), 2 spp), "
+              f"cuda vs cpu: {close * 100:.2f}% of pixels within rtol "
+              f"{PARITY_PIXEL_RTOL} (limit {CLI_MIN_CLOSE * 100:.2f}%); mean "
+              f"rel {mean_rel:.2e}, rays {ng} vs {nc}; cuda {tg:.2f} s, cpu "
+              f"{tc:.2f} s (compiles included): "
+              f"{'ok' if block_ok else 'FAIL'}", flush=True)
+
+        # the same scene with every bunny baked world-space
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        code_b, baked = full(False, "cli_baked.exr")
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        launches_b = launch_counts()["bvh8t"]
+        mse = float(np.mean((baked.beauty - img) ** 2))
+        baked_ok = (code_b == 0 and mse < CLI_MAX_MSE
+                    and launches_b["any_hit"] == launches_b["closest_hit"])
+        print(f"# cli baked frame (every bunny world-space): {wall_b:.3f} s "
+              f"wall, {baked.rays_traced} rays, launches {launches_b}; MSE "
+              f"against the instanced frame {mse:.3e} (limit {CLI_MAX_MSE}): "
+              f"{'ok' if baked_ok else 'FAIL'}", flush=True)
+
+        # bounce 1's first BLAS batch of each mode against the plain walk
+        held_ok = len(store) == 2 and all(
+            type(a).__name__ == "BlasTables" for a in accels)
+        blas_stats = {}
+        for av, b in zip(accels, store):
+            mode = "any_hit" if b[-1] else "closest_hit"
+            good, blas_stats[mode] = hold_and_time(
+                av, "bvh8t", WALKS["bvh8t"], intersect_tris_plain, b, b,
+                " on the cli frame's bounce-1 BLAS batch (instance 0)")
+            held_ok = held_ok and good
+        if not held_ok:
+            print(f"# cli BLAS batches: kept {len(store)}, want one of each "
+                  "mode on a BLAS: FAIL", flush=True)
+
+        # pixel, cuda against cpu
+        x, y = CLI_PIXEL
+        argv = ["pixel", str(x), str(y), "2", "--scene-path", paths[True],
+                *CLI_FLAGS]
+        got, want = pixel_lines(argv), pixel_lines(argv + ["--backend",
+                                                           "cpu"])
+        pixel_ok = len(got) == len(want) == 2 and all(
+            gh == wh and np.allclose(gu, wu, rtol=0, atol=AOV_ATOL)
+            and np.allclose(gn, wn, rtol=0, atol=AOV_ATOL)
+            and np.allclose(gr, wr, rtol=PARITY_PIXEL_RTOL, atol=1e-6)
+            for (gh, gu, gn, gr), (wh, wu, wn, wr) in zip(got, want))
+        rad = lambda res: [  # noqa: E731
+            " ".join(f"{v:.7g}" for v in r) for *_, r in res]
+        print(f"# cli pixel ({x}, {y}), samples 0 and 1, cuda vs cpu: "
+              f"radiance {rad(got)} vs {rad(want)}, hits "
+              f"{[h for h, *_ in got]}: {'ok' if pixel_ok else 'FAIL'}",
+              flush=True)
+
+        # --checkpoint in chunks of 3 samples against the one-shot frame
+        ck = os.path.join(tmp, "ck.npz")
+        t0 = time.perf_counter()
+        code_c, acc = full(True, "cli_checkpoint.exr", "--checkpoint", ck,
+                           "--spp-chunk", "3")
+        wall_c = time.perf_counter() - t0
+        err = float(np.max(np.abs(acc.beauty - img)))
+        with np.load(ck) as f:
+            done = int(f["spp_done"])
+        ck_ok = (code_c == 0 and done == 8 and acc.rays_traced
+                 == out.rays_traced and bool(np.allclose(
+                     acc.beauty, img, rtol=CHECKPOINT_RTOL,
+                     atol=CHECKPOINT_ATOL)))
+        print(f"# cli --checkpoint --spp-chunk 3: {wall_c:.3f} s wall, "
+              f"{done} spp in the checkpoint, rays {acc.rays_traced} vs "
+              f"{out.rays_traced}; max |diff| against the one-shot frame "
+              f"{err:.3g} (rtol {CHECKPOINT_RTOL}, atol {CHECKPOINT_ATOL}): "
+              f"{'ok' if ck_ok else 'FAIL'}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not (frame_ok and exr_ok and block_ok and baked_ok and held_ok
+            and pixel_ok and ck_ok):
+        raise AssertionError("the cli phase failed a check")
+    return dict(launches=launches, blas_launches=n_blas, blas=blas_stats)
 
 
 def max_clock_hz() -> float:
@@ -1499,7 +1885,7 @@ def phase_device(ds, settings, stats: dict, frame: list) -> dict:
         n = b[0].shape[0]
         counts = torch.zeros((n, 3), dtype=torch.int32, device=b[0].device)
         kernel(ds, *b, counts=counts)
-        bound_ms, _, visits, boxes, tests = bound(ds, "bvh8t", counts, n)
+        bound_ms, _, visits, boxes, tests = bound(ds, "bvh8t", counts, b[4])
         ms = time_ms(lambda: kernel(ds, *b), reps=5)
         print(f"# frame sample 0, bounce {i // 2}, {modes[i]}: "
               f"{int((counts[:, 0] > 0).sum())} live of {n} rays, kernel "
@@ -1531,15 +1917,17 @@ def phase_device(ds, settings, stats: dict, frame: list) -> dict:
 
 
 def kernel_entries(stats: dict, frame: dict, switch: dict,
-                   traversal: dict, scenes: dict) -> list:
+                   traversal: dict, scenes: dict, cli: dict) -> list:
     """The {"kernels": [...]} entries. bvh8t's launches are the full
     frame's (phase 4), the other walks' their switch frame's (phase 6, both
     modes); times and bounds are at the path's shape of the entry's mode
     (closest-hit for the walks, whose any-hit numbers ride along). bvh8t's
     entries also carry their mode's bounce-2 batch and the frame's
-    traversal in all (phase 9), and their launches in each builtin scene's
-    frame (phase 7); the any-hit entry also the emissive frame's
-    area-light shadow batch (phase 7)."""
+    traversal in all (phase 10), their launches in each builtin scene's
+    frame (phase 7) and in the cli frame (phase 8); the any-hit entry also
+    the emissive frame's area-light shadow batch (phase 7). Then one entry
+    a mode for the bvh8t kernel on a BLAS: the cli frame's bounce-1 batch
+    of instance 0, with the frame's launches over a BLAS."""
     kernels = []
     for kname, walk, modes, source, line in KERNELS:
         main_mode = modes[0]
@@ -1557,12 +1945,22 @@ def kernel_entries(stats: dict, frame: dict, switch: dict,
             entry["scene_launches"] = {
                 name: c[main_mode] for name, c in scenes.items()
                 if name in BEAUTY_SCENES or name in TEXTURE_FRAMES}
+            entry["scene_launches"]["cli_instanced"] = cli["launches"][
+                main_mode]
             if main_mode == "any_hit":
                 entry["area_shadow_batch"] = scenes["area_shadow"]
         if len(modes) > 1:
             entry["launches_by_mode"] = switch[walk]
             entry["any_hit"] = stats[walk, "any_hit"]
         kernels.append(entry)
+    for mode in ("closest_hit", "any_hit"):
+        kernels.append(dict(
+            name=f"bvh8t_walk<{mode}> on a BLAS", route="cuda",
+            source=CSRC + "bvh8t_walk.cu", replaces=PALLAS + ":931",
+            launches=cli["blas_launches"][mode], **cli["blas"][mode],
+            library_ms=None,
+            library="none: no PyTorch call computes a BVH walk", mode=mode,
+            batch="the cli frame's bounce 1, instance 0, object-space rays"))
     return kernels
 
 
@@ -1609,6 +2007,7 @@ def main() -> int:
         ("slice parity", lambda: phase_parity(scene, settings)),
         ("kernel switch", lambda: phase_switch(scene, settings, card)),
         ("builtin scenes", lambda: phase_builtin_scenes(card)),
+        ("cli and scene files", lambda: phase_cli(card)),
         ("probes", lambda: phase_probes(card)),
         ("device times", lambda: phase_device(
             ds, settings, results["kernel vs plain"], batches)),
@@ -1627,7 +2026,8 @@ def main() -> int:
     kernels = kernel_entries(results["kernel vs plain"],
                              results["full frame"], results["kernel switch"],
                              results["device times"],
-                             results["builtin scenes"])
+                             results["builtin scenes"],
+                             results["cli and scene files"])
     kernels += results["probes"]
     print(json.dumps({"kernels": kernels}))
     print(card)

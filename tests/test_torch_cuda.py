@@ -30,7 +30,7 @@ from tpu_raytracing_torch.probes import walk_cost as P1
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
-from chip_smoke import emissive_box, textured_cubes
+from chip_smoke import bunnies_glb, emissive_box, textured_cubes
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -436,6 +436,85 @@ def test_environment_light_never_launches_any_hit():
     assert np.isfinite(g.beauty).all() and g.beauty.mean() > 0
     assert abs(g.rays_traced - c.rays_traced) <= 0.005 * c.rays_traced
     np.testing.assert_allclose(g.beauty.mean(), c.beauty.mean(), rtol=0.01)
+
+
+@pytest.fixture(scope="module")
+def bunnies(tmp_path_factory):
+    """chip_smoke.py's glTF scenes: four bunnies over one BLAS, and the
+    same scene with every bunny baked world-space, at 96x96."""
+    from tpu_raytracing_torch.scene import scene_from_file
+
+    _needs_card()
+    d = tmp_path_factory.mktemp("bunnies")
+    out = {}
+    for instanced in (True, False):
+        path = d / f"{instanced}.glb"
+        bunnies_glb(path, instanced)
+        scene = scene_from_file(path)
+        scene.camera = scene.camera.with_resolution(96, 96)
+        out[instanced] = scene
+    return out
+
+
+def _blas_rays(blas, n, seed, early_exit):
+    """Object-space rays around the BLAS's root box, with t ranges and a
+    mask: _rays' distribution over the box instead of the scene."""
+    boxes = blas.t8_card.children[:, :6].cpu().numpy()
+    lo, hi = boxes[:, :3].min(axis=0), boxes[:, 3:6].max(axis=0)
+    rng = np.random.default_rng(seed)
+    c, r = (lo + hi) / 2, float(np.linalg.norm(hi - lo)) / 2
+    o = (c[None, :] + rng.normal(0, 0.5, (n, 3)) * r).astype(np.float32)
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = np.full(n, r if early_exit else np.inf, np.float32)
+    act = np.arange(n) % 7 != 3
+    return [torch.from_numpy(x).cuda() for x in (o, d, tmin, tmax, act)]
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("walk", ["bvh8t", *WALKS])
+def test_kernels_on_a_blas_vs_plain(bunnies, walk, early_exit):
+    """Every walk's kernel over the shared BLAS's tables (accel_of), on
+    object-space rays, against its plain version on the same view; one
+    launch counted."""
+    ds = compile_scene(bunnies[True], "cuda")
+    assert len(ds.meta.instances) == 4 and ds.meta.n_tris == 2
+    blas = TK.accel_of(ds, 0)
+    assert blas.meta.n_tris == 28576
+    kernel, plain = WALKS.get(walk, (intersect_tris_bvh8t,
+                                     intersect_tris_plain))
+    args = _blas_rays(blas, 16384, 19, early_exit)
+    reset_launch_counts()
+    tk, bk = kernel(blas, *args, early_exit)
+    mode = "any_hit" if early_exit else "closest_hit"
+    assert kernel.launches[mode] == 1
+    tp, bp = plain(blas, *args, early_exit)
+    torch.cuda.synchronize()
+    assert (bp >= 0).sum() > 1000
+    _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit,
+                  exact=walk in ("brute", "quad", "quadrow"))
+
+
+def test_instanced_frame_matches_baked(bunnies):
+    """The four bunnies over one BLAS against the same scene baked
+    world-space, on cuda (2 spp, depth 4): MSE < 1e-6; each bounce walks
+    the main tables and each instance once (1 + 4 closest-hit launches,
+    and as many any-hit launches for the shadow rays)."""
+    s = RaytracerSettings(samples_per_pixel=2, light_sample_count=1,
+                          max_ray_depth=4)
+    imgs = {}
+    for instanced, scene in bunnies.items():
+        reset_launch_counts()
+        imgs[instanced] = render(scene, s).beauty
+        n = dict(intersect_tris_bvh8t.launches)
+        per = 5 if instanced else 1
+        assert n["closest_hit"] % per == 0 and n["closest_hit"] > 0
+        assert n["any_hit"] == n["closest_hit"], n
+    assert imgs[True].mean() > 0 and np.isfinite(imgs[True]).all()
+    mse = float(np.mean((imgs[True] - imgs[False]) ** 2))
+    assert mse < 1e-6, mse
 
 
 # the probes: the plain versions run op by op, so they are compared at a

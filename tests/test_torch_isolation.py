@@ -45,6 +45,47 @@ def test_port_file_imports_no_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _relative_imports(path: Path):
+    """(package directory the import resolves in, module path or None,
+    imported names) of each relative import of a file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level > 0:
+            base = path.parent
+            for _ in range(node.level - 1):
+                base = base.parent
+            yield base, node.module, [a.name for a in node.names]
+
+
+def _module_exists(base: Path, dotted: str) -> bool:
+    target = base.joinpath(*dotted.split("."))
+    return (target.with_suffix(".py").is_file()
+            or (target / "__init__.py").is_file())
+
+
+PORT_PACKAGE = sorted((ROOT / "tpu_raytracing_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize(
+    "path", PORT_PACKAGE,
+    ids=[str(p.relative_to(ROOT)) for p in PORT_PACKAGE])
+def test_relative_imports_resolve_in_the_port(path):
+    """Every relative import names a module of the port itself (a module
+    that only the JAX package has would raise ModuleNotFoundError where the
+    import runs, which may be deep in a rarely taken branch)."""
+    for base, module, names in _relative_imports(path):
+        if module is not None:
+            assert _module_exists(base, module), (
+                f"{path.relative_to(ROOT)}: from {module} ... resolves to "
+                f"no module of the port")
+            continue
+        init = (base / "__init__.py").read_text()
+        for name in names:  # from . import x: a submodule or a package name
+            assert _module_exists(base, name) or re.search(
+                rf"\b{name}\b", init), (
+                f"{path.relative_to(ROOT)}: from . import {name} resolves "
+                f"to nothing in the port")
+
+
 @pytest.mark.parametrize(
     "path", CUDA_SOURCES, ids=[p.name for p in CUDA_SOURCES])
 def test_cuda_source_includes_only_the_toolkit_and_csrc(path):
@@ -71,9 +112,12 @@ def _prim_boxes(tri_arrays):
 def _scene_tris(scene):
     """World-space vertex triples of every mesh of a builtin scene (both
     packages' scenes hold the same meshes and transforms)."""
-    from tpu_raytracing_torch.device.scene_buffers import _triangle_soup
+    from tpu_raytracing_torch.device.scene_buffers import (
+        _flatten_primitives, _instance_groups, _triangle_soup,
+    )
 
-    return _triangle_soup(scene)[0:3]
+    prims = _flatten_primitives(scene)
+    return _triangle_soup(prims, _instance_groups(prims))[0:3]
 
 
 @pytest.mark.parametrize("name", ["coated_diffuse_bunny", "cube"])

@@ -120,16 +120,16 @@ def test_render_cpu_never_launches():
 
 
 def test_render_rejects_outside_slice(scene):
-    """An instanced mesh (ROADMAP.md: Next: instances) raises; so does a
-    cuda render without a card."""
+    """An area light on a sphere (the JAX package asserts against it)
+    raises; so does a cuda render without a card."""
     import tpu_raytracing_torch.geometry as TG
     import tpu_raytracing_torch.materials as TM
     import tpu_raytracing_torch.scene.test_scenes as TS
     from test_torch_scene import _outside_scene
 
     s = RaytracerSettings(outputs=AovFlags.BEAUTY | AovFlags.MIP_LEVEL)
-    with pytest.raises(NotImplementedError, match="Next: instances"):
-        render(_outside_scene("instanced_mesh", TS, TM, TG), s, "cpu")
+    with pytest.raises(NotImplementedError, match="area light on a sphere"):
+        render(_outside_scene("sphere_emitter", TS, TM, TG), s, "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             render(scene, SETTINGS, "cuda")

@@ -112,8 +112,8 @@ def _outside_scene(case, tmod, mmod, geom):
     (scene.test_scenes, materials, geometry): the cube with an image or a
     mix texture for albedo; chip_smoke.py's emissive Cornell box (an area
     light beside the point light) and textured cubes, at 64x64; or the
-    Cornell box with an emissive sphere or an instanced mesh
-    (`sphere_emitter`, `instanced_mesh`: outside the port)."""
+    Cornell box with an emissive sphere (`sphere_emitter`: outside the
+    port) or an instanced mesh (`instanced_mesh`)."""
     if case == "emissive_quad":
         scene = emissive_box(tmod, mmod, geom)
         scene.camera = scene.camera.with_resolution(64, 64)
@@ -195,16 +195,21 @@ def _pair(name):
     "environment_light",      # environment light, NEAREST image
     "emissive_quad",          # area light
     "textured_cube",          # trilinear pyramid, scale, mix
+    "instanced_mesh",         # a shared BLAS and its instance tables
 ])
 def test_textures_and_lights_byte_identical(name):
     """compile_scene and from_jax_leaves give JAX's leaves, byte for byte
-    (the mip atlas, texture rows and emitter rows included), and JAX's
-    meta."""
+    (the mip atlas, texture rows, emitter rows and instance tables
+    included; tests/test_torch_instancing.py holds the BLAS leaves), and
+    JAX's meta."""
     port_scene, jax_scene = _pair(name)
     tds = compile_scene(port_scene, "cpu")
     jds = jax_compile_scene(jax_scene)
     jm = dataclasses.asdict(jds.meta)
-    fj = from_jax_leaves(_jax_leaves(jds), jm, "cpu")
+    leaves = _jax_leaves(jds)
+    leaves["blas_tables"] = [{k: np.asarray(v) for k, v in b._asdict().items()}
+                             for b in jds.blas_tables]
+    fj = from_jax_leaves(leaves, jm, "cpu")
     assert fj.meta == tds.meta
     for k in LEAF_NAMES:
         want = np.asarray(getattr(jds, k))
@@ -217,19 +222,13 @@ def test_textures_and_lights_byte_identical(name):
         assert getattr(tds.meta, f.name) == want, f.name
 
 
-@pytest.mark.parametrize("name", ["instanced_mesh", "sphere_emitter"])
+@pytest.mark.parametrize("name", ["sphere_emitter"])
 def test_outside_slice_raises(name):
-    """An instanced mesh (a shared BLAS in JAX: next in ROADMAP.md) and an
-    area light on a sphere (JAX asserts against it) raise on the port."""
-    port_scene, jax_scene = _pair(name)
+    """An area light on a sphere (JAX asserts against it) raises on the
+    port."""
+    port_scene, _ = _pair(name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         compile_scene(port_scene, "cpu")
-    if name == "instanced_mesh":
-        jds = jax_compile_scene(jax_scene)
-        assert jds.meta.instances
-        with pytest.raises(NotImplementedError, match="Next: instances"):
-            from_jax_leaves(_jax_leaves(jds), dataclasses.asdict(jds.meta),
-                            "cpu")
 
 
 def test_cuda_device_without_card_raises():

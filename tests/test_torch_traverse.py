@@ -200,3 +200,76 @@ def test_bvh8t_layout_widths_match_jax(monkeypatch, width):
     for a, b in zip(got[:3], want[:3]):
         assert a.tobytes() == b.tobytes()
     assert got[3] == want[3]
+
+
+def _soup_scene(pkg: str):
+    """tests/test_pallas_traverse.py::test_bvh8t_chunked_big_scene's
+    scene (3,000 seeded triangles) from package `pkg`'s modules."""
+    import importlib
+
+    G = importlib.import_module(pkg + ".geometry")
+    M = importlib.import_module(pkg + ".materials")
+    S = importlib.import_module(pkg + ".scene")
+    C = importlib.import_module(pkg + ".scene.camera")
+    rng = np.random.default_rng(7)
+    n = 3000
+    base = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    verts = np.concatenate(
+        [base, base + rng.normal(0, 0.05, (n, 3)).astype(np.float32),
+         base + rng.normal(0, 0.05, (n, 3)).astype(np.float32)], axis=1
+    ).reshape(n * 3, 3).astype(np.float32)
+    mesh = G.Mesh(vertices=verts,
+                  tris=np.arange(n * 3, dtype=np.uint32).reshape(n, 3))
+    sb = S.SceneBuilder()
+    sb.add_camera(C.Camera.lookat_camera_perspective(
+        G.v3(0, 0, 5), G.v3(0, 0, 0), G.v3(0, 1, 0), False,
+        np.deg2rad(45.0), 64, 64))
+    mat = sb.add_material(M.Diffuse(albedo=sb.add_constant_texture(
+        G.v4(0.5, 0.5, 0.5, 1))))
+    sb.add_shape_at_position(G.TriangleMesh(mesh), mat, G.v3(0, 0, 0))
+    return sb.build()
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+def test_unchunked_walk_vs_jax_chunked_walk(monkeypatch, early_exit):
+    """A scene that JAX splits into bvh8t chunks (a 64 KiB budget, as
+    test_bvh8t_chunked_big_scene sets it) is walked by the port as one
+    table set, from its own compile and from JAX's leaves: the winners of
+    JAX's chunked Pallas walk (interpret mode), t within rtol 1e-5;
+    any-hit bits equal."""
+    import dataclasses
+
+    from tpu_raytracing_torch.device import from_jax_leaves
+
+    monkeypatch.setenv("TPU_RT_PALLAS_KERNEL", "bvh8t")
+    monkeypatch.setenv("TPU_RT_T8_CHUNK_BYTES", str(64 * 1024))
+    monkeypatch.setattr(JT, "_use_pallas", lambda _ds: True)
+    jds = jax_compile_scene(_soup_scene("tpu_raytracing"))
+    assert len(jds.meta.t8_chunk_meta) > 1
+    tds = compile_scene(_soup_scene("tpu_raytracing_torch"), "cpu")
+    fj = from_jax_leaves(_jax_leaves(jds), dataclasses.asdict(jds.meta),
+                         "cpu")
+    rng = np.random.default_rng(3)
+    n = 1024
+    o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = np.full(n, 1.0 if early_exit else np.inf, np.float32)
+    tj, pj = JT.intersect_scene(jds, *(jnp.asarray(x)
+                                       for x in (o, d, tmin, tmax)),
+                                early_exit=early_exit)
+    tj, pj = np.asarray(tj), np.asarray(pj)
+    assert (pj >= 0).sum() > 50
+    for ds in (tds, fj):
+        tt, pt = intersect_scene(ds, *_t(o, d, tmin, tmax),
+                                 early_exit=early_exit)
+        if early_exit:
+            np.testing.assert_array_equal(pt.numpy() >= 0, pj >= 0)
+        else:
+            _assert_winners(pj, pt.numpy(), tj, tt.numpy(), tie_limit=1)
+
+
+def _jax_leaves(jds) -> dict:
+    return {k: np.asarray(getattr(jds, k)) for k in SB.LEAF_NAMES}

@@ -7,8 +7,10 @@ the JAX scene's leaf of the same name (tests/test_torch_scene.py): the
 traversal tables of every walk the JAX kernel switch selects (bvh8t,
 skip-link, child-pair, BVH4 and its row records), the shading rows, the
 object-space sphere tables, the material and texture tables with the image
-mip atlas, the light tables with the area-light emitter rows, and the
-camera tables.
+mip atlas, the light tables with the area-light emitter rows, the camera
+tables, and the instance tables: one object-space BLAS (`BlasTables`) per
+mesh that several transform chains share, with each instance's transforms
+and world box.
 
 The scene description it reads (scene, geometry, accel, materials,
 lights) is the port's own copy of the JAX package's host modules; the port
@@ -20,8 +22,9 @@ ROADMAP.md item that brings them.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,9 +76,10 @@ T8_LEAF = 16
 N8_PER_BLOCK = 16  # nodes per node block (8 columns each)
 G8_PER_BLOCK = 12  # tri groups per tri block (10 columns each)
 
-# JAX splits scenes whose bvh8t tables exceed this budget into subtree
-# chunks (scene_buffers.py::_t8_chunk_layout); the port walks one table set
-MAX_UNCHUNKED_BYTES = 6 * 1024 * 1024
+# shared meshes below this size are baked world-space, as are emissive ones
+# (the JAX package's INSTANCE_MIN_TRIS: same variable, same default, read
+# at import)
+INSTANCE_MIN_TRIS = int(os.environ.get("TPU_RT_INSTANCE_MIN_TRIS", "16"))
 
 # f32 words of a triangle row of the bvh8t card layout (csrc/bvh8t_walk.cu)
 T8_ROW_WORDS = 12
@@ -120,6 +124,13 @@ class SceneMeta:
     # texture kinds reachable from each material slot / the env texture
     slot_kinds: Tuple[Tuple[int, ...], ...] = ()
     env_kinds: Tuple[int, ...] = ()
+    # per BLAS: (n_tris, root_meta, bvh2_depth, root_meta4, bvh4_stack,
+    # n_nodes, root_meta4r, t8_stack)
+    blas_meta: Tuple[Tuple[int, ...], ...] = ()
+    # per instance: (blas_id, vtri_base, n_tris, shade_off)
+    instances: Tuple[Tuple[int, int, int, int], ...] = ()
+    # first virtual-triangle prim id (n_tris + padded sphere count)
+    inst_vtri_base0: int = 0
 
 
 @dataclass(frozen=True)
@@ -131,6 +142,49 @@ class Bvh8tCard:
                             # n_leaf, child_base
     children: torch.Tensor  # (C, 8) f32: box min3 max3, link, rows (bits)
     tris: torch.Tensor      # (R, 12) f32: p0 e1 e2, id bits, 2 zero words
+
+
+class AccelMeta(NamedTuple):
+    """The statics a triangle walk reads, under SceneMeta's names: the main
+    tables' are fields of SceneMeta, a BLAS's its `blas_meta` row."""
+
+    n_tris: int
+    root_meta: int
+    bvh2_depth: int
+    root_meta4: int
+    bvh4_stack: int
+    n_bvh_nodes: int
+    root_meta4r: int
+    t8_stack: int
+    t8_width: int
+    t8_leaf: int
+
+
+@dataclass(frozen=True)
+class BlasTables:
+    """One shared BLAS: a mesh's object-space traversal tables, built once
+    however many instances use it (the JAX BlasTables, same leaf names),
+    with its bvh8t card layout and its statics. It has the attributes the
+    walks read from a DeviceScene, so every walk takes one in its place
+    (ops/traverse_kernels.py::accel_of)."""
+
+    bvh2_rows: torch.Tensor
+    tri_pack: torch.Tensor
+    bvh4_recs_pk: torch.Tensor
+    bvh2_rows_pk: torch.Tensor
+    bvh_nodes_pk: torch.Tensor
+    tri_pack_pk: torch.Tensor
+    bvh4_rows: torch.Tensor
+    tri_rows: torch.Tensor
+    t8_nodes: torch.Tensor
+    t8_meta: torch.Tensor
+    t8_tris: torch.Tensor
+    t8_card: Bvh8tCard
+    meta: AccelMeta
+
+
+BLAS_LEAF_NAMES = tuple(f.name for f in dataclasses.fields(BlasTables)
+                        if f.name not in ("meta", "t8_card"))
 
 
 @dataclass
@@ -178,7 +232,11 @@ class DeviceScene:
     cam_min_diff: torch.Tensor          # (4, 3)
     bounds_center: torch.Tensor  # (3,)
     bounds_radius: torch.Tensor  # () f32
+    inst_xf: torch.Tensor        # (max(1, I), 32) f32 o2w | w2o row-major
+    inst_aabb_min: torch.Tensor  # (max(1, I), 3) f32 instance world box
+    inst_aabb_max: torch.Tensor
     t8_card: Bvh8tCard           # the bvh8t kernel's layout of t8_*
+    blas_tables: Tuple[BlasTables, ...]
     meta: SceneMeta
 
     @property
@@ -186,10 +244,14 @@ class DeviceScene:
         return self.tri_shade.device
 
 
+# what a triangle walk reads (ops/traverse_kernels.py::accel_of): the main
+# tables of a scene or one of its BLASes
+Accel = Union[DeviceScene, BlasTables]
+
 # the tables that have a JAX leaf of the same name
 LEAF_NAMES = tuple(
     f.name for f in dataclasses.fields(DeviceScene)
-    if f.name not in ("meta", "t8_card")
+    if f.name not in ("meta", "t8_card", "blas_tables")
 )
 
 
@@ -636,13 +698,6 @@ def _accel_tables(tri_arrays):
     tri = [_pad_rows(a, t_pad, fill=-1 if k == 10 else 0)
            for k, a in enumerate(tri)]
 
-    if n_tris * 80 + bvh.n_nodes * 40 > MAX_UNCHUNKED_BYTES:
-        # the root estimate the JAX package chunks on (_t8_chunk_layout)
-        raise _unsupported(
-            "a scene whose bvh8t tables JAX splits into VMEM chunks",
-            "Not ported: bvh8t VMEM chunking; hold the unchunked walk "
-            "against the chunked JAX result first",
-        )
     tri_pack = np.concatenate(tri[0:3], axis=1).astype(F)
     bvh_nodes = _skiplink_nodes(bvh)
     bvh_nodes_pk, tri_pack_pk = _pack_tables(bvh_nodes, tri_pack)
@@ -696,26 +751,37 @@ def _normal_matrix(t: Transform) -> np.ndarray:
     return t.inverse[:3, :3].T.copy()
 
 
-def _triangle_soup(scene: Scene):
-    """World-space triangle arrays of every mesh (compile_scene's loop;
-    spheres are left to `_sphere_tables`)."""
-    prims = _flatten_primitives(scene)
+def _instance_groups(prims):
+    """prim index -> (prim, [world transforms]) of every mesh that JAX
+    builds as a shared BLAS: reached through more than one transform
+    chain, not emissive, at least INSTANCE_MIN_TRIS triangles. In the
+    order of first use."""
     occ_count: dict = {}
     for _, prim_idx, _ in prims:
         occ_count[prim_idx] = occ_count.get(prim_idx, 0) + 1
+    groups: dict = {}
+    for prim, prim_idx, t in prims:
+        shape = prim.shape
+        if (isinstance(shape, TriangleMesh) and occ_count[prim_idx] > 1
+                and prim.area_light is None
+                and shape.mesh.tris.shape[0] >= INSTANCE_MIN_TRIS):
+            groups.setdefault(prim_idx, (prim, []))[1].append(t)
+    return groups
+
+
+def _triangle_soup(prims, instanced):
+    """World-space triangle arrays of every mesh of the flattened `prims`
+    that is not in `instanced` (compile_scene's loop; spheres are left to
+    `_sphere_tables`, shared meshes to `_instance_tables`)."""
     parts = [[] for _ in range(13)]
     for prim, prim_idx, t in prims:
         mat_id = prim.material if prim.material is not None else 0
         light_id = prim.area_light if prim.area_light is not None else -1
         shape = prim.shape
-        if isinstance(shape, Sphere):
+        if isinstance(shape, Sphere) or prim_idx in instanced:
             continue
         if not isinstance(shape, TriangleMesh):
             raise TypeError(f"unknown shape: {shape}")
-        if (occ_count[prim_idx] > 1 and prim.area_light is None
-                and shape.mesh.tris.shape[0] >= 16):
-            # JAX builds these as a shared BLAS (INSTANCE_MIN_TRIS = 16)
-            raise _unsupported("an instanced mesh", "Next: instances")
         mesh = shape.mesh
         nt = mesh.tris.shape[0]
         if nt == 0:
@@ -756,13 +822,71 @@ def _triangle_soup(scene: Scene):
     )
 
 
-def _sphere_tables(scene: Scene):
-    """(tables, n_spheres): the object-space sphere tables, padded to a
+def _mesh_tri_arrays(mesh, mat_id: int, light_id: int):
+    """Object-space per-triangle arrays of one mesh (no transform)."""
+    tri = mesh.tris.astype(np.int64)
+    nt = tri.shape[0]
+    v = mesh.vertices.astype(F)
+    p0, p1, p2 = v[tri[:, 0]], v[tri[:, 1]], v[tri[:, 2]]
+    if mesh.has_normals:
+        n = mesh.normals.astype(F)
+        n0, n1, n2 = n[tri[:, 0]], n[tri[:, 1]], n[tri[:, 2]]
+        has_n = np.ones(nt, bool)
+    else:
+        n0 = n1 = n2 = np.zeros((nt, 3), F)
+        has_n = np.zeros(nt, bool)
+    if mesh.has_uvs:
+        uv = mesh.uvs.astype(F)
+        uv0, uv1, uv2 = uv[tri[:, 0]], uv[tri[:, 1]], uv[tri[:, 2]]
+        has_uv = np.ones(nt, bool)
+    else:
+        uv0 = uv1 = uv2 = np.zeros((nt, 2), F)
+        has_uv = np.zeros(nt, bool)
+    return (p0, p1, p2, n0, n1, n2, uv0, uv1, uv2,
+            np.full(nt, mat_id, np.int32), np.full(nt, light_id, np.int32),
+            has_n, has_uv)
+
+
+def _instance_tables(groups, n_tris: int):
+    """The shared BLASes and their instances (JAX compile_scene's instance
+    block): (BLAS accel dicts, blas_meta, instances without their vtri
+    base, [(o2w, w2o)], [(world min, world max)], BLAS shade rows). A
+    BLAS's shade rows follow the main rows, padded to 8."""
+    blas, blas_meta, instances, mats, aabbs, shade = [], [], [], [], [], []
+    shade_off = _round_up(n_tris, 8)
+    for prim, transforms in groups.values():
+        mat_id = prim.material if prim.material is not None else 0
+        b = _accel_tables(_mesh_tri_arrays(prim.shape.mesh, mat_id, -1))
+        blas_id = len(blas)
+        blas.append(b)
+        blas_meta.append((b["n_tris"], b["root_meta"], b["bvh2_depth"],
+                          b["root_meta4"], b["bvh4_stack"],
+                          b["n_bvh_nodes"], b["root_meta4r"],
+                          b["t8_stack"]))
+        shade.append(_tri_shade_rows(b["tri"]))
+        lo, hi = b["root_min"], b["root_max"]
+        corners = np.array(
+            [[lo[0] if sx < 0 else hi[0], lo[1] if sy < 0 else hi[1],
+              lo[2] if sz < 0 else hi[2]]
+             for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)], F)
+        for t in transforms:
+            m = t.forward
+            wc = corners @ m[:3, :3].T + m[:3, 3]
+            aabbs.append((wc.min(axis=0), wc.max(axis=0)))
+            mats.append((m.astype(F), t.inverse.astype(F)))
+            instances.append((blas_id, 0, b["n_tris"], shade_off))
+        shade_off += shade[-1].shape[0]
+    return blas, blas_meta, instances, mats, aabbs, shade
+
+
+def _sphere_tables(prims):
+    """(tables, n_spheres): the object-space sphere tables of the flattened
+    `prims`, padded to a
     multiple of 8 with radius 0, identity matrices, material 0 and light -1
     (JAX compile_scene's spheres). No sphere is an emitter: an area light
     on one raises."""
     sph = []
-    for prim, _, t in _flatten_primitives(scene):
+    for prim, _, t in prims:
         if not isinstance(prim.shape, Sphere):
             continue
         if prim.area_light is not None:
@@ -1076,14 +1200,37 @@ def _minimum_differentials(cam) -> np.ndarray:
 def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
     """Build the slice's tables for `scene` on `device` (the card unless
     the caller asks for "cpu"; without a card, cuda raises)."""
-    acc = _accel_tables(_triangle_soup(scene))
-    sph, n_spheres = _sphere_tables(scene)
+    prims = _flatten_primitives(scene)
+    groups = _instance_groups(prims)
+    acc = _accel_tables(_triangle_soup(prims, groups))
+    blas, blas_meta, instances, inst_mats, inst_aabbs, blas_shade = (
+        _instance_tables(groups, acc["n_tris"]))
+    sph, n_spheres = _sphere_tables(prims)
+
+    # virtual-triangle prim ids: [0, n_tris) main triangles, then the
+    # padded spheres, then one contiguous block per instance
+    inst_vtri_base0 = acc["n_tris"] + sph["sph_radius"].shape[0]
+    base = inst_vtri_base0
+    for i, (blas_id, _, nt_b, so) in enumerate(instances):
+        instances[i] = (blas_id, base, nt_b, so)
+        base += nt_b
+    n_inst = len(instances)
+    inst_xf = np.zeros((max(1, n_inst), 32), F)
+    inst_aabb_min = np.zeros((max(1, n_inst), 3), F)
+    inst_aabb_max = np.zeros((max(1, n_inst), 3), F)
+    for i, (o2w, w2o) in enumerate(inst_mats):
+        inst_xf[i, :16] = o2w.reshape(-1)
+        inst_xf[i, 16:] = w2o.reshape(-1)
+        inst_aabb_min[i], inst_aabb_max[i] = inst_aabbs[i]
 
     lo = np.full(3, np.inf)
     hi = np.full(3, -np.inf)
     if acc["n_tris"]:
         lo = np.minimum(lo, acc["root_min"])
         hi = np.maximum(hi, acc["root_max"])
+    for amin, amax in inst_aabbs:
+        lo = np.minimum(lo, amin)
+        hi = np.maximum(hi, amax)
     for i in range(n_spheres):
         c, r = sph["sph_center"][i], sph["sph_radius"][i]
         corners = c[None, :] + r * np.array(
@@ -1152,6 +1299,9 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
         t8_leaf=T8_LEAF,
         slot_kinds=slot_kinds,
         env_kinds=env_kinds,
+        blas_meta=tuple(blas_meta),
+        instances=tuple(instances),
+        inst_vtri_base0=int(inst_vtri_base0),
     )
     leaves = dict(
         bvh2_rows=acc["bvh2_rows"], tri_pack=acc["tri_pack"],
@@ -1159,7 +1309,8 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
             "bvh_nodes", "bvh_nodes_pk", "tri_pack_pk", "bvh2_rows_pk",
             "bvh4_recs_pk", "bvh4_rows", "tri_rows")},
         t8_nodes=acc["t8_nodes"], t8_meta=acc["t8_meta"],
-        t8_tris=acc["t8_tris"], tri_shade=_tri_shade_rows(acc["tri"]),
+        t8_tris=acc["t8_tris"],
+        tri_shade=np.concatenate([_tri_shade_rows(acc["tri"]), *blas_shade]),
         **sph, mat_kind=mat_kind, mat_tex=mat_tex, mat_remap=mat_remap,
         mat_pack=mat_pack, mat_tex_rows=mat_tex_rows, tex_pack=tex_pack,
         img_texels=img_texels, lvl_pack=lvl_pack, **lights,
@@ -1167,20 +1318,34 @@ def compile_scene(scene: Scene, device="cuda") -> DeviceScene:
         cam_camera_to_world=cam.camera_to_world.forward,
         cam_min_diff=_minimum_differentials(cam),
         bounds_center=bounds_center, bounds_radius=bounds_radius,
+        inst_xf=inst_xf, inst_aabb_min=inst_aabb_min,
+        inst_aabb_max=inst_aabb_max,
     )
-    return _to_device(leaves, meta, device)
+    return _to_device(leaves, blas, meta, device)
 
 
-def _to_device(leaves: dict, meta: SceneMeta, device) -> DeviceScene:
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _to_device(leaves: dict, blas, meta: SceneMeta, device) -> DeviceScene:
+    """leaves: LEAF_NAMES -> arrays; blas: per BLAS, BLAS_LEAF_NAMES ->
+    arrays."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device")
+    w, lg = meta.t8_width, meta.t8_leaf
     return DeviceScene(
-        **{k: torch.from_numpy(np.array(leaves[k], copy=True)).to(device)
-           for k in LEAF_NAMES},
+        **{k: _tensor(leaves[k], device) for k in LEAF_NAMES},
         t8_card=bvh8t_card(leaves["t8_nodes"], leaves["t8_meta"],
-                           leaves["t8_tris"], meta.t8_width, meta.t8_leaf,
-                           device),
+                           leaves["t8_tris"], w, lg, device),
+        blas_tables=tuple(
+            BlasTables(
+                **{k: _tensor(b[k], device) for k in BLAS_LEAF_NAMES},
+                t8_card=bvh8t_card(b["t8_nodes"], b["t8_meta"],
+                                   b["t8_tris"], w, lg, device),
+                meta=AccelMeta(*bm, w, lg))
+            for b, bm in zip(blas, meta.blas_meta)),
         meta=meta,
     )
 
@@ -1189,17 +1354,18 @@ def from_jax_leaves(leaves: dict, meta: dict, device) -> DeviceScene:
     """Build the port's DeviceScene from a JAX scene's leaves.
 
     leaves: JAX DeviceScene field name -> numpy array (np.asarray of the
-    leaf); meta: dataclasses.asdict of the JAX SceneMeta. Scenes outside
-    the slice raise NotImplementedError as compile_scene does."""
-    if meta["instances"]:
-        raise _unsupported("an instanced mesh", "Next: instances")
-    if meta["t8_chunk_meta"]:
-        raise _unsupported(
-            "a scene whose bvh8t tables JAX splits into VMEM chunks",
-            "Not ported: bvh8t VMEM chunking")
+    leaf), and "blas_tables" -> per BLAS, a mapping of its leaf names to
+    arrays (the JAX BlasTables' `_asdict()`); meta: dataclasses.asdict of
+    the JAX SceneMeta. A scene that JAX splits into bvh8t chunks keeps its
+    unchunked tables, which the port walks."""
     fields = {f.name for f in dataclasses.fields(SceneMeta)}
     m = SceneMeta(**{k: _freeze(v) for k, v in meta.items() if k in fields})
-    return _to_device({k: leaves[k] for k in LEAF_NAMES}, m, device)
+    blas = leaves.get("blas_tables", ())
+    if len(blas) != len(m.blas_meta):
+        raise ValueError(
+            f"leaves['blas_tables'] holds {len(blas)} BLAS tables but the "
+            f"meta describes {len(m.blas_meta)}")
+    return _to_device({k: leaves[k] for k in LEAF_NAMES}, blas, m, device)
 
 
 def _freeze(v):

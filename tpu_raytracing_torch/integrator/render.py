@@ -19,6 +19,9 @@ Rays that miss add the environment's radiance where the scene has one.
 
 First-hit AOVs (normals, albedo, uv, mip level) come from one pass of
 unjittered camera rays before the beauty pass, as in JAX.
+
+`render_single_pixel` replays one pixel's sample streams (the CLI's `pixel`
+command); the NaN scan at the end of `render` names it for a repro.
 """
 from __future__ import annotations
 
@@ -46,7 +49,9 @@ from ..ops.textures import (
     EvalCtx, eval_ctx_from_differentials, eval_texture, texture_mip_level,
 )
 from ..ops.traverse import hit_details, intersect_scene, occluded
-from ..settings import AovFlags, RaytracerSettings, RenderOutput
+from ..settings import (
+    AovFlags, RaytracerSettings, RenderOutput, SinglePixelOutput,
+)
 
 log = logging.getLogger("tpu_raytracing_torch")
 
@@ -239,17 +244,27 @@ def trace_radiance(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
     return s.radiance, s.rays
 
 
-def render_beauty_chunk(ds: DeviceScene, cfg: SamplerConfig,
-                        st: StaticSettings, px, py, active=None):
-    """Average radiance over spp for one pixel chunk; returns
+def sample_sum(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
+               px, py, first: int, count: int, active=None):
+    """Radiance summed over samples first .. first + count - 1 (absolute
+    sample indices) for one pixel chunk, in sample order; returns
     ((B, 3) f32, rays traced (0-d int64 tensor))."""
     total = torch.zeros((px.shape[0], 3), dtype=torch.float32,
                         device=px.device)
     rays = torch.zeros((), dtype=torch.int64, device=px.device)
-    for s in range(st.samples_per_pixel):
+    for s in range(first, first + count):
         r, n = trace_radiance(ds, cfg, st, px, py, s, active=active)
         total = total + r
         rays = rays + n
+    return total, rays
+
+
+def render_beauty_chunk(ds: DeviceScene, cfg: SamplerConfig,
+                        st: StaticSettings, px, py, active=None):
+    """Average radiance over spp for one pixel chunk; returns
+    ((B, 3) f32, rays traced (0-d int64 tensor))."""
+    total, rays = sample_sum(ds, cfg, st, px, py, 0, st.samples_per_pixel,
+                             active)
     return total / st.samples_per_pixel, rays
 
 
@@ -343,23 +358,31 @@ def _run_chunked(fn, px, py, device, chunk):
                        torch.from_numpy(act).to(device))
 
 
+def device_scene(scene_or_device, device: torch.device,
+                 caller: str) -> DeviceScene:
+    """The compiled scene on `device`: a DeviceScene as given (it must
+    live there), or a Scene compiled there. A cuda device without a card
+    raises."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}(device='cuda'): no CUDA device")
+    if isinstance(scene_or_device, DeviceScene):
+        if scene_or_device.device.type != device.type:
+            raise ValueError(f"scene lives on {scene_or_device.device}, "
+                             f"{caller} on {device}")
+        return scene_or_device
+    t0 = time.perf_counter()
+    ds = compile_scene(scene_or_device, device)
+    log.info("scene compile took %.3fs", time.perf_counter() - t0)
+    return ds
+
+
 def render(scene_or_device, settings: RaytracerSettings, device="cuda",
            chunk_pixels: int | None = None) -> RenderOutput:
     """Full-frame render on `device`: the card unless the caller asks for
     "cpu"; without a card, a cuda render raises. The first-hit AOVs that
     `settings.outputs` asks for come first, then the beauty pass."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render(device='cuda'): no CUDA device")
-    if isinstance(scene_or_device, DeviceScene):
-        ds = scene_or_device
-        if ds.device.type != device.type:
-            raise ValueError(f"scene lives on {ds.device}, render on {device}")
-    else:
-        t0 = time.perf_counter()
-        ds = compile_scene(scene_or_device, device)
-        log.info("scene compile took %.3fs", time.perf_counter() - t0)
-
+    ds = device_scene(scene_or_device, device, "render")
     cfg = SamplerConfig.from_settings(settings.sampler, settings.seed)
     st = StaticSettings.from_settings(settings)
     width, height = ds.meta.width, ds.meta.height
@@ -400,8 +423,47 @@ def render(scene_or_device, settings: RaytracerSettings, device="cuda",
     log.info("beauty pass took %.3fs (%d rays, %.1f Mrays/s)",
              dt, out.rays_traced, out.rays_traced / dt / 1e6)
     beauty = beauty[unmorton].reshape(height, width, 3)
-    bad = ~np.isfinite(beauty)
-    if bad.any():
-        log.warning("%d non-finite radiance pixels", int(bad.any(-1).sum()))
+    _nan_scan(beauty)
     out.beauty = beauty
     return out
+
+
+def _nan_scan(beauty: np.ndarray) -> None:
+    """Log the non-finite pixels of a frame and how to replay the first."""
+    bad = ~np.isfinite(beauty)
+    if bad.any():
+        ys, xs = np.nonzero(bad.any(axis=-1))
+        log.warning(
+            "%d non-finite radiance pixels (first at x=%d y=%d); repro "
+            "with: python -m tpu_raytracing_torch.cli <scene> pixel %d %d",
+            len(ys), xs[0], ys[0], xs[0], ys[0])
+
+
+def render_single_pixel(scene, settings: RaytracerSettings, x: int, y: int,
+                        sample_count: int = 1, sample_offset: int = 0,
+                        device="cuda") -> list:
+    """Replay the sample streams of pixel (x, y), clamped to the raster:
+    per sample its radiance and its camera ray's first hit (hit, uv,
+    normal). On the card unless the caller asks for "cpu"."""
+    ds = compile_scene(scene, device)
+    cfg = SamplerConfig.from_settings(settings.sampler, settings.seed)
+    st = StaticSettings.from_settings(settings)
+    x = min(max(x, 0), ds.meta.width - 1)
+    y = min(max(y, 0), ds.meta.height - 1)
+    px = torch.tensor([x], dtype=torch.int64, device=ds.device)
+    py = torch.tensor([y], dtype=torch.int64, device=ds.device)
+    near = torch.full((1,), ds.meta.near_clip, device=ds.device)
+    far = torch.full((1,), ds.meta.far_clip, device=ds.device)
+    outputs = []
+    for s in range(sample_offset, sample_offset + sample_count):
+        radiance = trace_radiance(ds, cfg, st, px, py, s)[0][0]
+        stream = make_stream(px, py, s)
+        ray_o, ray_d, _, _ = generate_rays(
+            ds, px, py, cfg, stream, st.samples_per_pixel, jitter=True)
+        t, prim = intersect_scene(ds, ray_o, ray_d, near, far)
+        hit = hit_details(ds, ray_o, ray_d, t, prim)
+        outputs.append(SinglePixelOutput(
+            sample_index=s, hit=bool(hit.hit[0]),
+            uv=hit.uv[0].cpu().numpy(), normal=hit.normal[0].cpu().numpy(),
+            radiance=radiance.cpu().numpy()))
+    return outputs

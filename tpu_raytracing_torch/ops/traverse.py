@@ -1,14 +1,18 @@
 """Batched scene intersection: closest-hit, any-hit and hit shading data.
 
-Counterpart of tpu_raytracing/ops/traverse.py without instances, the
-bounce sort or presorted lanes: a brute-force pass over the analytic
-spheres in object space, then one pass over the main triangle accel with
-the sphere hit as its t_max. The triangle query goes through
+Counterpart of tpu_raytracing/ops/traverse.py without the bounce sort or
+presorted lanes, in JAX's pass order: a brute-force pass over the analytic
+spheres in object space, one pass over the main triangle accel, then one
+pass per instance over its shared BLAS with the rays taken into object
+space (w2o) and masked by the instance's world-box slab test. Each pass
+takes the best t so far as its t_max. The triangle query goes through
 ops/traverse_kernels.py, which picks the walk as the JAX kernel switch does
 and runs its CUDA kernel on the card and its plain version on the CPU.
 
 Winning primitive encoding: 0 <= prim < n_tris -> triangle index (BVH
-order); n_tris <= prim -> sphere prim - n_tris; prim < 0 -> miss.
+order); n_tris <= prim < inst_vtri_base0 -> sphere prim - n_tris; then
+one block of virtual triangle ids per instance (vtri_base + the BLAS's
+triangle); prim < 0 -> miss.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..device.scene_buffers import DeviceScene
-from .intersect import ray_sphere, ray_triangle, sphere_hit_geom
+from .intersect import ray_aabb, ray_sphere, ray_triangle, sphere_hit_geom
 from .linalg import (
     apply_point, apply_vector, apply_vector_transposed, cross, normalize,
 )
@@ -61,9 +65,10 @@ def intersect_scene(ds: DeviceScene, origin, direction, t_min, t_max,
                     early_exit: bool = False, active=None):
     """Closest-hit (or any-hit) query. Returns (t, encoded prim or -1).
 
-    A sphere hit cuts the lane's t_max for the triangle walk; a triangle
-    at t <= that hit replaces it. Any-hit lanes a sphere occludes skip the
-    walk."""
+    A sphere hit cuts the lane's t_max for the triangle walks; a triangle
+    at t <= that hit replaces it. The affine ray transform keeps t, so t
+    chains through the instance passes. Any-hit lanes that an earlier pass
+    occludes skip the later walks."""
     B = origin.shape[0]
     dev = origin.device
     t_min = t_min.expand(B).contiguous()
@@ -84,6 +89,20 @@ def intersect_scene(ds: DeviceScene, origin, direction, t_min, t_max,
         tri_hit = pbest >= 0
         t_best = torch.where(tri_hit, pt, t_best)
         best = torch.where(tri_hit, pbest, best)
+    inv_dir = 1.0 / direction if ds.meta.instances else None
+    for i, (blas_id, vtri_base, _, _) in enumerate(ds.meta.instances):
+        w2o = ds.inst_xf[i, 16:].reshape(4, 4)
+        a0, a1 = ray_aabb(origin, inv_dir, ds.inst_aabb_min[i],
+                          ds.inst_aabb_max[i])
+        walk = active & (a0 <= a1) & (a1 >= t_min) & (a0 <= t_best)
+        if early_exit:
+            walk = walk & (best < 0)
+        pt, pbest = intersect_tris(
+            ds, apply_point(w2o, origin), apply_vector(w2o, direction),
+            t_min, t_best, walk, early_exit, blas=blas_id)
+        ihit = pbest >= 0
+        t_best = torch.where(ihit, pt, t_best)
+        best = torch.where(ihit, vtri_base + pbest, best)
     t = torch.where(best >= 0, t_best, torch.full_like(t_best, INF))
     return t, best
 
@@ -97,20 +116,45 @@ def occluded(ds: DeviceScene, origin, direction, t_min, t_max, active=None):
 
 def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
     """Expand an encoded (t, prim) result into full shading geometry.
-    Triangles interpolate in world space; spheres are recomputed in object
-    space and transformed out."""
+    Triangles interpolate in world space; an instanced triangle is
+    decoded to its BLAS's object-space shade row, recomputed with the
+    object-space ray and transformed out (the normal by the inverse
+    transpose); spheres are recomputed in object space and transformed
+    out."""
     n_tris = ds.meta.n_tris
+    instances = ds.meta.instances
     hit = prim >= 0
     is_tri = hit & (prim < n_tris)
     point = origin + t[:, None] * direction
 
-    tid = torch.clamp(torch.where(is_tri, prim, torch.zeros_like(prim)),
-                      0, max(n_tris - 1, 0))
+    o_sel, d_sel = origin, direction
+    if instances:
+        is_inst = hit & (prim >= ds.meta.inst_vtri_base0)
+        # the instances' id blocks are contiguous and ascending: the lane's
+        # instance is the last whose vtri base is <= prim
+        vbase, shade_off = torch.tensor(
+            [[vb for _, vb, _, _ in instances],
+             [so for *_, so in instances]],
+            dtype=prim.dtype, device=prim.device)
+        xf_id = torch.where(
+            is_inst, torch.searchsorted(vbase, prim, right=True) - 1, 0)
+        row = torch.where(is_inst, prim - vbase[xf_id] + shade_off[xf_id],
+                          torch.where(is_tri, prim, 0))
+        tid = torch.clamp(row, 0, ds.tri_shade.shape[0] - 1)
+        xf = ds.inst_xf[xf_id]
+        o2w = xf[:, :16].reshape(-1, 4, 4)
+        iw2o = xf[:, 16:].reshape(-1, 4, 4)
+        sel_i = is_inst[:, None]
+        o_sel = torch.where(sel_i, apply_point(iw2o, origin), origin)
+        d_sel = torch.where(sel_i, apply_vector(iw2o, direction), direction)
+    else:
+        tid = torch.clamp(torch.where(is_tri, prim, torch.zeros_like(prim)),
+                          0, max(n_tris - 1, 0))
     sh = ds.tri_shade[tid.long()]
     p0, p1, p2 = sh[:, 0:3], sh[:, 3:6], sh[:, 6:9]
     sh_ints = sh[:, 24:28].contiguous().view(torch.int32)
     _, _, u, v = ray_triangle(
-        origin, direction, p0, p1, p2,
+        o_sel, d_sel, p0, p1, p2,
         torch.full_like(t, -INF), torch.full_like(t, INF),
     )
     w = 1.0 - u - v
@@ -141,6 +185,12 @@ def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
     dpdu = inv_det[:, None] * (duv12[:, 1:2] * dp02 - duv02[:, 1:2] * dp12)
     dpdv = inv_det[:, None] * (duv02[:, 0:1] * dp12 - duv12[:, 0:1] * dp02)
     material, light = sh_ints[:, 0], sh_ints[:, 1]
+    if instances:
+        normal = torch.where(
+            sel_i, normalize(apply_vector_transposed(iw2o, normal)), normal)
+        dpdu = torch.where(sel_i, apply_vector(o2w, dpdu), dpdu)
+        dpdv = torch.where(sel_i, apply_vector(o2w, dpdv), dpdv)
+        is_tri = is_tri | is_inst
 
     if ds.meta.n_spheres:
         sid = torch.clamp(

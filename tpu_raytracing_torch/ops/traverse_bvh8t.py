@@ -6,9 +6,9 @@ hit distance (t_max where there is no hit) and best the winning triangle in
 BVH order (-1 where there is none); inactive lanes return (t_max, -1).
 
 - On a CUDA tensor it launches csrc/bvh8t_walk.cu (the port of the TPU's
-  `_t8_kernel`, over the card layout `DeviceScene.t8_card` that
-  device/scene_buffers.py::bvh8t_card_layout builds from the JAX tables) or
-  raises. There is no fallback.
+  `_t8_kernel`, over the card layout `t8_card` that
+  device/scene_buffers.py::bvh8t_card_layout builds from the JAX tables, of
+  the main accel or of one BLAS) or raises. There is no fallback.
 - On a CPU tensor it runs `intersect_tris_plain`, a PyTorch port of the
   JAX package's XLA stack walk (`ops/traverse.py::_intersect_stack`) over
   the child-pair rows, which is what JAX itself runs on the CPU.
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..device.scene_buffers import DeviceScene
+from ..device.scene_buffers import Accel
 from .intersect import ray_aabb
 from .walk_common import (
     DONE, STACK_CAP, launch_ray_kernel, leaf_first_min, leaf_records, no_hits,
@@ -28,7 +28,7 @@ from .walk_common import (
 )
 
 
-def intersect_tris_plain(ds: DeviceScene, origin, direction, t_min, t_max,
+def intersect_tris_plain(ds: Accel, origin, direction, t_min, t_max,
                          active, early_exit: bool = False):
     """Near-first stack walk over child-pair rows (plain PyTorch).
 
@@ -107,14 +107,15 @@ def intersect_tris_plain(ds: DeviceScene, origin, direction, t_min, t_max,
     return t_best, best
 
 
-def intersect_tris_bvh8t(ds: DeviceScene, origin, direction, t_min, t_max,
+def intersect_tris_bvh8t(ds: Accel, origin, direction, t_min, t_max,
                          active, early_exit: bool = False, counts=None):
     """Closest-hit (or any-hit with early_exit) over the scene's triangles.
 
-    CPU tensors take the plain walk; CUDA tensors launch the kernel over
-    the scene's card layout (`ds.t8_card`), and each launch adds one to
-    `intersect_tris_bvh8t.launches[mode]`. `counts` (card only) is
-    launch_ray_kernel's."""
+    `ds` is an accel (traverse_kernels.py::accel_of): a DeviceScene's main
+    tables or one BlasTables. CPU tensors take the plain walk; CUDA tensors
+    launch the kernel over its card layout (`ds.t8_card`), and each launch
+    adds one to `intersect_tris_bvh8t.launches[mode]`. `counts` (card
+    only) is launch_ray_kernel's."""
     dev = origin.device
     if dev.type == "cpu":
         return intersect_tris_plain(ds, origin, direction, t_min, t_max,

@@ -25,7 +25,7 @@ CPU tensor it runs its plain version:
 - brute: `intersect_tris_brute_plain`, dense over the t8 groups, bit-equal
   to the kernel;
 - walk: `intersect_tris_skiplink_plain`, a port of ops/traverse.py::
-  _intersect_skiplink over bvh_nodes + tri_pack;
+  _intersect_skiplink over the records of bvh_nodes_pk + tri_pack;
 - pair: `intersect_tris_plain` (ops/traverse_bvh8t.py), the XLA stack walk
   over the child-pair rows that bvh2_rows_pk packs;
 - quad / quadrow: `intersect_tris_quad_plain`, a per-lane BVH4 walk over the
@@ -33,6 +33,12 @@ CPU tensor it runs its plain version:
 
 Walks that order children differently reach the same leaves, so their
 winners agree except on equal-t ties between leaves.
+
+A walk reads one accel: the scene's main tables (the DeviceScene itself) or
+one shared BLAS (a BlasTables, which carries the same attribute names).
+`accel_of` picks it, as traverse_pallas.py::_accel_of does, and the switch
+decides per accel: the brute kernel takes a BLAS of at most
+TPU_RT_BRUTE_GROUPS groups too.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import os
 import torch
 
 from ..accel.bvh import MAX_LEAF_SIZE
-from ..device.scene_buffers import DeviceScene
+from ..device.scene_buffers import Accel, DeviceScene
 from ..native_cuda import on_card
 from .intersect import ray_aabb, ray_triangle_edges
 from .traverse_bvh8t import intersect_tris_bvh8t, intersect_tris_plain
@@ -66,13 +72,18 @@ def brute_groups_max() -> int:
     return int(os.environ.get("TPU_RT_BRUTE_GROUPS", "0"))
 
 
-def t8_groups(ds: DeviceScene) -> int:
+def accel_of(ds: DeviceScene, blas: int | None = None) -> Accel:
+    """The tables a walk reads: the main ones, or BLAS `blas`'s."""
+    return ds if blas is None else ds.blas_tables[blas]
+
+
+def t8_groups(ds: Accel) -> int:
     """Triangle groups of the bvh8t blocks, padding groups included (the
     count the brute kernel tests, traverse_pallas.py:1836)."""
     return ds.t8_tris.shape[0] // int(ds.meta.t8_leaf) * G8_PER_BLOCK
 
 
-def select_walk(ds: DeviceScene) -> str:
+def select_walk(ds: Accel) -> str:
     """The walk the switch selects: bvh8t, brute, quad, quadrow, pair or
     walk (the skip-link walk)."""
     kind = kernel_kind()
@@ -83,10 +94,13 @@ def select_walk(ds: DeviceScene) -> str:
     return "walk"
 
 
-def intersect_tris(ds: DeviceScene, origin, direction, t_min, t_max, active,
-                   early_exit: bool = False):
-    """Closest-hit (or any-hit) through the walk the switch selects."""
-    return WALKS[select_walk(ds)](ds, origin, direction, t_min, t_max, active,
+def intersect_tris(ds: Accel, origin, direction, t_min, t_max, active,
+                   early_exit: bool = False, blas: int | None = None):
+    """Closest-hit (or any-hit) through the walk the switch selects, over
+    the main tables or over BLAS `blas` (object-space rays; `best` is
+    BLAS-local)."""
+    av = accel_of(ds, blas)
+    return WALKS[select_walk(av)](av, origin, direction, t_min, t_max, active,
                                   early_exit)
 
 
@@ -98,7 +112,7 @@ def _mode(early_exit: bool) -> str:
 # K3: treeless brute force (csrc/t8_brute.cu)
 
 
-def intersect_tris_brute_plain(ds: DeviceScene, origin, direction, t_min,
+def intersect_tris_brute_plain(ds: Accel, origin, direction, t_min,
                                t_max, active, early_exit: bool = False):
     """Every ray tests every bvh8t group, padding included, in group order
     (plain PyTorch). Inside a group the least t wins and equal t goes to
@@ -145,7 +159,7 @@ def intersect_tris_brute_plain(ds: DeviceScene, origin, direction, t_min,
     return t_best, best
 
 
-def intersect_tris_brute(ds: DeviceScene, origin, direction, t_min, t_max,
+def intersect_tris_brute(ds: Accel, origin, direction, t_min, t_max,
                          active, early_exit: bool = False, counts=None):
     """K3: the brute kernel on the card, its plain version on the CPU."""
     if not on_card("brute kernel", origin):
@@ -169,18 +183,20 @@ def intersect_tris_brute(ds: DeviceScene, origin, direction, t_min, t_max,
 # K6: stackless skip-link walk (csrc/skip_walk.cu)
 
 
-def intersect_tris_skiplink_plain(ds: DeviceScene, origin, direction, t_min,
+def intersect_tris_skiplink_plain(ds: Accel, origin, direction, t_min,
                                   t_max, active, early_exit: bool = False):
-    """ops/traverse.py::_intersect_skiplink per lane (plain PyTorch): on an
-    internal hit descend to node + 1, else jump to skip, until the sentinel
-    n_bvh_nodes; a hit leaf takes its first minimum, then a <= update.
-    Each step works on the lanes still walking."""
+    """ops/traverse.py::_intersect_skiplink per lane (plain PyTorch) over the
+    node records that bvh_nodes_pk packs: on an internal hit descend to
+    node + 1, else jump to skip, until the sentinel n_bvh_nodes; a hit leaf
+    takes its first minimum, then a <= update. Each step works on the lanes
+    still walking."""
     B = origin.shape[0]
     t_best, best = no_hits(t_max, B)
     n_tris = ds.meta.n_tris
     if B == 0 or n_tris == 0:
         return t_best, best
     sentinel = int(ds.meta.n_bvh_nodes)
+    nodes = ds.bvh_nodes_pk.reshape(-1, 8)
     inv_dir = 1.0 / direction
     node = torch.where(active, 0, sentinel).to(torch.int64)
     while True:
@@ -188,7 +204,7 @@ def intersect_tris_skiplink_plain(ds: DeviceScene, origin, direction, t_min,
         if lanes.numel() == 0:
             return t_best, best
         n = node[lanes]
-        nd = ds.bvh_nodes[n]
+        nd = nodes[n]
         o, tmn, tb = origin[lanes], t_min[lanes], t_best[lanes]
         t0, t1 = ray_aabb(o, inv_dir[lanes], nd[:, 0:3], nd[:, 3:6])
         hit = (t0 <= t1) & (t1 >= tmn) & (t0 <= tb)
@@ -211,7 +227,7 @@ def intersect_tris_skiplink_plain(ds: DeviceScene, origin, direction, t_min,
         node[lanes] = nxt
 
 
-def intersect_tris_skiplink(ds: DeviceScene, origin, direction, t_min, t_max,
+def intersect_tris_skiplink(ds: Accel, origin, direction, t_min, t_max,
                             active, early_exit: bool = False, counts=None):
     """K6: the skip-link kernel on the card, its plain version on the CPU."""
     if not on_card("skip-link walk", origin):
@@ -236,7 +252,7 @@ def intersect_tris_skiplink(ds: DeviceScene, origin, direction, t_min, t_max,
 # stack walk over the same rows, intersect_tris_plain
 
 
-def intersect_tris_pair(ds: DeviceScene, origin, direction, t_min, t_max,
+def intersect_tris_pair(ds: Accel, origin, direction, t_min, t_max,
                         active, early_exit: bool = False, counts=None):
     """K5: the child-pair kernel on the card, intersect_tris_plain on the
     CPU."""
@@ -264,7 +280,7 @@ def intersect_tris_pair(ds: DeviceScene, origin, direction, t_min, t_max,
 # K4: BVH4 walk, quad and quadrow (csrc/quad_walk.cu)
 
 
-def _quad_tables(ds: DeviceScene, rowrec: bool):
+def _quad_tables(ds: Accel, rowrec: bool):
     """(records (K, 32), leaf table, root meta) of one BVH4 layout."""
     if rowrec:
         return ds.bvh4_rows[:, :32], ds.tri_rows, int(ds.meta.root_meta4r)
@@ -298,7 +314,7 @@ def _quad_order(d, axes, nkids, nleft, early_exit: bool):
     return torch.where(sgn_top[:, None], near_r, near_l)
 
 
-def intersect_tris_quad_plain(ds: DeviceScene, origin, direction, t_min,
+def intersect_tris_quad_plain(ds: Accel, origin, direction, t_min,
                               t_max, active, early_exit: bool = False,
                               rowrec: bool = False):
     """Per-lane BVH4 walk (plain PyTorch) over the record and leaf tables
@@ -386,7 +402,7 @@ def intersect_tris_quad_plain(ds: DeviceScene, origin, direction, t_min,
         best[lanes] = bs
 
 
-def _quad(wrapper, rowrec: bool, ds: DeviceScene, origin, direction, t_min,
+def _quad(wrapper, rowrec: bool, ds: Accel, origin, direction, t_min,
           t_max, active, early_exit: bool, counts):
     if not on_card("quad walk", origin):
         return intersect_tris_quad_plain(ds, origin, direction, t_min, t_max,
@@ -409,14 +425,14 @@ def _quad(wrapper, rowrec: bool, ds: DeviceScene, origin, direction, t_min,
     return t, best
 
 
-def intersect_tris_quad(ds: DeviceScene, origin, direction, t_min, t_max,
+def intersect_tris_quad(ds: Accel, origin, direction, t_min, t_max,
                         active, early_exit: bool = False, counts=None):
     """K4 `quad`: the BVH4 kernel over bvh4_recs_pk + tri_pack_pk."""
     return _quad(intersect_tris_quad, False, ds, origin, direction, t_min,
                  t_max, active, early_exit, counts)
 
 
-def intersect_tris_quadrow(ds: DeviceScene, origin, direction, t_min, t_max,
+def intersect_tris_quadrow(ds: Accel, origin, direction, t_min, t_max,
                            active, early_exit: bool = False, counts=None):
     """K4 `quadrow`: the BVH4 kernel over bvh4_rows + tri_rows."""
     return _quad(intersect_tris_quadrow, True, ds, origin, direction, t_min,
