@@ -19,7 +19,7 @@ Phases (any failure exits nonzero and prints no result):
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel (launch counts reset
    just before, read just after). A copy of every ray batch the frame hands
-   the walk is kept for phase 10;
+   the walk is kept for phase 11, and the frame for phase 9;
 5. slice parity: two blocks of 4,096 Morton-order pixels (2 spp, depth 8),
    one of walls and floor and one mostly on the bunny, on cuda with the
    kernels against cpu with the plain versions;
@@ -61,7 +61,17 @@ Phases (any failure exits nonzero and prints no result):
    view, then timed and bounded by the BLAS's own tables; `pixel` on cuda
    against cpu; and `--checkpoint --spp-chunk 3` against the one-shot
    frame;
-9. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
+9. rttest gate: the frames phases 4 and 7 rendered at the settings the
+   port's committed references name (tpu_raytracing_torch/rttest/
+   references: a digest of the JAX package's CPU renders, and the normals
+   rows' EXRs), each held against its reference with the rttest harness's
+   statistical gate at its default tolerances: phase 4's bunny (8 spp, one
+   light sample, depth 8), and phase 7's five sphere beauty scenes,
+   checkered_plane, environment_light and the sphere, cube and
+   cube_orthographic normals at their builtin settings; then the harness
+   itself, `python -m tpu_raytracing_torch.rttest cuda`, on one row
+   through the CLI subprocess. One line a row; a FAIL fails the phase;
+10. the probes (tpu_raytracing_torch/probes): the mains of P3 (iteration
    cost), P4 (bf16 slab), P2 (slab cost) and P1 (walk-visit ablation), at
    the scripts' counts (P1 at 4,096 visits, not the script's 200,000: its
    plain version takes about a millisecond a visit), their launch counts
@@ -70,7 +80,7 @@ Phases (any failure exits nonzero and prints no result):
    launch of its kernel on the same inputs (P3 also on small-id inputs;
    P2 and P1 in their outputs, stats and every visit's drained mask, and
    also on a second seeded input set whose drains vary);
-10. device times and the frame's traversal: every walk's kernel time alone
+11. device times and the frame's traversal: every walk's kernel time alone
    at the path's shape, from torch.profiler's kernel events; the frame's
    bounce-2 batches (closest-hit and its shadow rays) held against the plain
    walk and timed like the camera rays; then all of the frame's bvh8t
@@ -218,7 +228,7 @@ CLI_PIXEL = (144, 336)
 CLI_MIN_CLOSE = 0.999
 CLI_MAX_MSE = 1e-6
 CHECKPOINT_RTOL, CHECKPOINT_ATOL = 1e-5, 1e-6
-# the probes (phase 9): name, source, the Pallas probe it replaces. One SM
+# the probes (phase 10): name, source, the Pallas probe it replaces. One SM
 # runs each, by design, so a bound's share of one SM is its card share
 # times the SMs.
 PROBE_KERNELS = (
@@ -250,6 +260,13 @@ P2_OPS = {
     "row0": (16 * 128 * SLAB_OPS + 16 * 42,) * 2,
     "mxu": (2 * 16 * 128 * 128, 2 * 96 * 128 * 128),
 }
+# the rttest gate (phase 9): the reference row of phase 4's frame, the
+# rows of phase 7's frames (their suite names), and the row the harness
+# itself renders through the CLI subprocess
+BENCH_ROW = "coated_diffuse_bunny_8spp"
+GATE_ROWS = (BENCH_ROW, *BEAUTY_SCENES, "checkered_plane",
+             "environment_light", *AOV_SCENES)
+HARNESS_ROW = "checkered_plane"
 P1_SLAB_OPS = 16 * 512 * SLAB_OPS
 P1_TRIP_OPS = 16 * 512 * MT_OPS
 SMS = 132
@@ -635,7 +652,8 @@ def kept_batches(walk: str, store: list, calls=None, accels=None,
         TK.WALKS[walk] = fn
 
 
-def phase_full_frame(scene, settings, card: str, store: list) -> dict:
+def phase_full_frame(scene, settings, card: str, store: list,
+                     frames: dict) -> dict:
     from tpu_raytracing_torch.integrator.render import render
     from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
 
@@ -661,6 +679,7 @@ def phase_full_frame(scene, settings, card: str, store: list) -> dict:
         raise AssertionError("beauty mean is not positive")
     if min(launches["bvh8t"].values()) <= 0:
         raise AssertionError(f"a kernel mode never launched: {launches}")
+    frames[BENCH_ROW] = ("RGB", img, settings)
     return launches["bvh8t"]
 
 
@@ -864,12 +883,13 @@ def sphere_cut_effect(ds, settings, card: str) -> tuple:
     return ok, out
 
 
-def phase_builtin_scenes(card: str) -> dict:
+def phase_builtin_scenes(card: str, frames: dict) -> dict:
     """The builtin scenes this slice brings: the five beauty scenes with a
     sphere as full frames on cuda at their builtin settings, one block of
     each on cuda against cpu, and the three normals-only scenes' AOVs on
     cuda against cpu. Returns scene -> bvh8t launch counts, plus the
-    sphere-cut measurement."""
+    sphere-cut measurement; keeps each rttest row's cuda frame in
+    `frames`."""
     from tpu_raytracing_torch.device import compile_scene
     from tpu_raytracing_torch.integrator.render import (
         StaticSettings, _pixel_grid, render, render_beauty_chunk,
@@ -899,6 +919,7 @@ def phase_builtin_scenes(card: str) -> dict:
                          else not any(launches.values())))
         ok = ok and frame_ok
         out[name] = launches
+        frames[name] = ("RGB", img, s)
         print(f"# scene {name}: {img.shape[1]}x{img.shape[0]}, "
               f"{s.samples_per_pixel} spp, depth {s.max_ray_depth}, "
               f"{s.light_sample_count} light samples: {wall:.3f} s wall, "
@@ -951,6 +972,7 @@ def phase_builtin_scenes(card: str) -> dict:
             res[dev] = (render(scene, s, dev).normals,
                         time.perf_counter() - t0, launch_counts()["bvh8t"])
         (g, tg, launches), (c, tc, _) = res["cuda"], res["cpu"]
+        frames[name] = ("Normal", g, s)
         hit_g, hit_c = np.any(g != 0, axis=-1), np.any(c != 0, axis=-1)
         mask_same = float((hit_g == hit_c).mean())
         close = float(np.all(np.abs(g - c) <= AOV_ATOL, axis=-1).mean())
@@ -965,8 +987,8 @@ def phase_builtin_scenes(card: str) -> dict:
               f"cuda {tg:.3f} s on {card}, cpu {tc:.3f} s (scene compile "
               f"included); bvh8t launches "
               f"{launches}: {'ok' if aov_ok else 'FAIL'}", flush=True)
-    frames_ok, frames = texture_frames(card)
-    out.update(frames)
+    frames_ok, launches = texture_frames(card, frames)
+    out.update(launches)
     if not (ok and frames_ok):
         raise AssertionError("a builtin scene failed its frame or parity")
     return out
@@ -1177,7 +1199,7 @@ def area_shadow_call(ds, settings) -> int:
     return (1 + sum(n_s)) + 1 + sum(n_s[:kinds.index(LIGHT_AREA)])
 
 
-def texture_frames(card: str) -> tuple:
+def texture_frames(card: str, frames: dict) -> tuple:
     """The frames of the textures and lights slice: checkered_plane,
     environment_light and the emissive box on cuda at their builtin
     settings, launch counts reset just before each and read just after,
@@ -1186,7 +1208,7 @@ def texture_frames(card: str) -> tuple:
     the emissive frame held against the plain walk, then timed and bounded;
     and the textured cubes' albedo and mip-level AOVs on cuda against cpu.
     Returns (ok, frame -> bvh8t launches, with "area_shadow" -> the
-    batch's stats)."""
+    batch's stats); keeps each rttest row's cuda frame in `frames`."""
     from tpu_raytracing_torch.device import compile_scene
     from tpu_raytracing_torch.integrator.render import (
         StaticSettings, _pixel_grid, render, render_beauty_chunk,
@@ -1225,6 +1247,8 @@ def texture_frames(card: str) -> tuple:
                     and (launches["any_hit"] > 0) == any_hit)
         ok = ok and frame_ok
         out[name] = launches
+        if name in GATE_ROWS:
+            frames[name] = ("RGB", img, s)
         print(f"# scene {name}: {img.shape[1]}x{img.shape[0]}, "
               f"{s.samples_per_pixel} spp, depth {s.max_ray_depth}, "
               f"{s.light_sample_count} light samples: {wall:.3f} s wall, "
@@ -1541,6 +1565,66 @@ def phase_cli(card: str) -> dict:
             and pixel_ok and ck_ok):
         raise AssertionError("the cli phase failed a check")
     return dict(launches=launches, blas_launches=n_blas, blas=blas_stats)
+
+
+def phase_rttest(frames: dict, card: str) -> None:
+    """Each frame of GATE_ROWS, as phases 4 and 7 rendered it on cuda, held
+    against the port's committed reference of its row (the JAX package's
+    CPU render) with the rttest statistical gate at its default tolerances
+    (and the suite's per-scene overrides, where tests.toml has any); then
+    the harness on HARNESS_ROW through the CLI subprocess."""
+    from tpu_raytracing_torch.rttest import diff, digest, main as rt
+    from tpu_raytracing_torch.rttest.test_spec import load_test_suite
+
+    refs = digest.References(rt.REFERENCES)
+    specs = {sp.name: sp.settings for sp in load_test_suite(rt.SUITE)}
+    ok = True
+    for name in GATE_ROWS:
+        group, img, s = frames[name]
+        rec, exr = refs.lookup(name)
+        want = rec["settings"]
+        rendered = (group, [img.shape[1], img.shape[0]], s.samples_per_pixel,
+                    s.light_sample_count, s.max_ray_depth)
+        if rendered != (rec["group"], want["resolution"], want["spp"],
+                        want["light_samples"], want["max_depth"]):
+            raise AssertionError(f"{name}: rendered at {rendered}, the "
+                                 f"reference at {want}")
+        if exr is not None:
+            d = diff.compare_arrays(group, img,
+                                    diff.load_exr_channels(exr)[1])
+        else:
+            d = diff.compare_digest(group, img, rec)
+        tols = specs.get(name)
+        row_ok = d.stat_passes(*((tols.stat_rel_mean, tols.stat_block_rel)
+                                 if tols else ()))
+        ok = ok and row_ok
+        mse = "null" if d.mse is None else f"{d.mse:.3e}"
+        print(f"# rttest gate {name} [{d.channel_group}]: rel_mean "
+              f"{d.rel_mean:.6f} block_rel {d.block_rel:.6f} mse {mse}: "
+              f"{'PASS' if row_ok else 'FAIL'}", flush=True)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_raytracing_torch.rttest", "cuda",
+         "--scenes", HARNESS_ROW, "--json", "--no-perf"],
+        capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    try:
+        res = json.loads(proc.stdout.strip().splitlines()[-1])["results"][0]
+    except (IndexError, KeyError, ValueError):
+        print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the harness printed no result (exit "
+                             f"{proc.returncode})")
+    ok = ok and proc.returncode == 0 and res["status"] == "PASS"
+    mse = "null" if res["mse"] is None else f"{res['mse']:.3e}"
+    print(f"# rttest gate {HARNESS_ROW} through `python -m "
+          f"tpu_raytracing_torch.rttest cuda` [{res['group']}]: rel_mean "
+          f"{res['rel_mean']:.6f} block_rel {res['block_rel']:.6f} mse {mse}; "
+          f"render {res['render_time_seconds']:.3f} s, harness {wall:.3f} s "
+          f"on {card}, exit {proc.returncode}: {res['status']}", flush=True)
+    if not ok:
+        raise AssertionError("a row failed the rttest statistical gate")
 
 
 def max_clock_hz() -> float:
@@ -1923,7 +2007,7 @@ def kernel_entries(stats: dict, frame: dict, switch: dict,
     modes); times and bounds are at the path's shape of the entry's mode
     (closest-hit for the walks, whose any-hit numbers ride along). bvh8t's
     entries also carry their mode's bounce-2 batch and the frame's
-    traversal in all (phase 10), their launches in each builtin scene's
+    traversal in all (phase 11), their launches in each builtin scene's
     frame (phase 7) and in the cli frame (phase 8); the any-hit entry also
     the emissive frame's area-light shadow batch (phase 7). Then one entry
     a mode for the bvh8t kernel on a BLAS: the cli frame's bounce-1 batch
@@ -1968,7 +2052,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from tpu_raytracing_torch import native_cuda
+    from tpu_raytracing_torch import native, native_cuda
     from tpu_raytracing_torch.device import compile_scene
     from tpu_raytracing_torch.scene.test_scenes import get_test_scene
     from tpu_raytracing_torch.settings import AovFlags, RaytracerSettings
@@ -1993,21 +2077,32 @@ def main() -> int:
         samples_per_pixel=8, light_sample_count=1, max_ray_depth=8,
         outputs=AovFlags.BEAUTY,
     )
+    if native.disabled():
+        builder = "numpy BVH builder (TPU_RAYTRACING_NO_NATIVE)"
+    else:
+        path, secs = native.build()
+        builder = f"native BVH builder, {path.name} (g++ {secs:.2f} s)"
     t0 = time.perf_counter()
     ds = compile_scene(scene)
-    print(f"# scene compile (numpy BVH build included): "
-          f"{time.perf_counter() - t0:.3f} s on {card}", flush=True)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compile_scene(scene)
+    print(f"# scene compile ({builder}): {secs:.3f} s on {card} (the CUDA "
+          f"context's start included); again {time.perf_counter() - t0:.3f} "
+          f"s", flush=True)
     failed = []
     batches = []  # every ray batch the full frame hands the bvh8t walk
+    frames = {}  # rttest row -> (channel group, cuda frame, settings)
     results = {}
     phases = (
         ("kernel vs plain", lambda: phase_kernel(ds, settings, log)),
         ("full frame", lambda: phase_full_frame(scene, settings, card,
-                                                batches)),
+                                                batches, frames)),
         ("slice parity", lambda: phase_parity(scene, settings)),
         ("kernel switch", lambda: phase_switch(scene, settings, card)),
-        ("builtin scenes", lambda: phase_builtin_scenes(card)),
+        ("builtin scenes", lambda: phase_builtin_scenes(card, frames)),
         ("cli and scene files", lambda: phase_cli(card)),
+        ("rttest gate", lambda: phase_rttest(frames, card)),
         ("probes", lambda: phase_probes(card)),
         ("device times", lambda: phase_device(
             ds, settings, results["kernel vs plain"], batches)),

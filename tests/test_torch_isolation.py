@@ -3,7 +3,10 @@ its copies of the host modules build what the JAX package builds, and its
 entry points run on the card unless the caller asks for the CPU.
 """
 import ast
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +26,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_raytracing_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "tpu_raytracing", "scripts")
+FORBIDDEN = ("jax", "tpu_raytracing", "scripts", "visual_testing")
 CUDA_SOURCES = sorted((ROOT / "tpu_raytracing_torch" / "csrc").glob("*.cu*"))
 
 
@@ -169,3 +172,40 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         render(scene, settings)
     assert compile_scene(scene, "cpu").device.type == "cpu"
+
+
+def test_harness_and_native_library_stand_alone():
+    """With jax, the JAX package and the JAX harness made unimportable, the
+    port's rttest harness reads the suite and the committed references and
+    gates a reference against itself, and the native host library builds
+    the bunny's BVH."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'tpu_raytracing', 'visual_testing'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from tpu_raytracing_torch import native\n"
+        "from tpu_raytracing_torch.rttest import diff, digest, main, runner\n"
+        "from tpu_raytracing_torch.rttest.test_spec import load_test_suite\n"
+        "specs = load_test_suite(main.SUITE)\n"
+        "refs = digest.References(main.REFERENCES)\n"
+        "rec, exr = refs.lookup('cube')\n"
+        "assert diff.compare_images(exr, exr).mse == 0.0\n"
+        "spec = next(s for s in specs if s.name == 'cube')\n"
+        "assert runner.gate(spec, exr, refs, main.SCENE_BASE)[0] == 'PASS'\n"
+        "assert native.get_lib() is not None\n"
+        "from tpu_raytracing_torch.device import compile_scene\n"
+        "from tpu_raytracing_torch.scene.test_scenes import get_test_scene\n"
+        "sc = get_test_scene('coated_diffuse_bunny').scene_func()\n"
+        "assert compile_scene(sc, 'cpu').meta.n_tris == 28586\n"
+        "assert not any(m.split('.')[0] in ('jax', 'tpu_raytracing', "
+        "'visual_testing') for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "TPU_RAYTRACING_NO_NATIVE")}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")

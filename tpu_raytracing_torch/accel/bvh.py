@@ -1,10 +1,10 @@
 """Binned-SAH BVH build (host) -> skip-link linear layout.
 
-The port's copy of tpu_raytracing/accel/bvh.py, numpy builder only. It
-builds the same tree as the JAX package's native C++ builder
-(csrc/bvh_builder.cpp), array for array (tests/test_torch_isolation.py);
-the port's own compiled builder is a ROADMAP item. Nodes are emitted in
-depth-first order with skip links:
+The port's copy of tpu_raytracing/accel/bvh.py. `build_bvh` prefers the
+port's native builder (csrc/host/bvh_builder.cpp through native.py, a copy
+of the JAX package's); the numpy builder below builds the same arrays
+(tests/test_torch_native.py) and runs where TPU_RAYTRACING_NO_NATIVE is
+set. Nodes are emitted in depth-first order with skip links:
 
     hit AABB   -> next = node + 1            (descend into first child)
     miss/leaf  -> next = skip[node]          (jump over the subtree)
@@ -16,6 +16,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from .. import native
 
 F = np.float32
 # Max prims per leaf. The node encodings pack the count in 3 bits
@@ -62,10 +64,20 @@ def build_bvh(
     prim_max: np.ndarray,
     max_leaf_size: int = MAX_LEAF_SIZE,
 ) -> LinearBVH:
-    """Build a BVH over primitive AABBs. Deterministic for fixed input."""
+    """Build a BVH over primitive AABBs. Deterministic for fixed input.
+
+    Prefers the native builder, as the JAX package does; its build or load
+    failure raises (native.py)."""
     prim_min = np.asarray(prim_min, F).reshape(-1, 3)
     prim_max = np.asarray(prim_max, F).reshape(-1, 3)
     n = prim_min.shape[0]
+
+    lib = native.get_lib() if n > 0 else None
+    if lib is not None:
+        nm, nx, lf, ct, sk, po = native.build_bvh_native(
+            lib, prim_min, prim_max, max_leaf_size)
+        return LinearBVH(node_min=nm, node_max=nx, left_first=lf, count=ct,
+                         skip=sk, prim_order=po)
 
     if n == 0:
         return LinearBVH(

@@ -20,15 +20,18 @@ contiguously; each region gets a 2D Haar-style wavelet inverse per u16
 plane, then the bitmap-derived LUT maps dense indices back to values,
 then rows are interleaved back into scanline order.
 
-The Huffman decode is the pure-Python table-driven decoder below (the
-JAX package also has a bit-identical native C++ one, csrc/exr_huf.cpp,
-which the port does not build yet: ROADMAP.md item 11).
+`huf_uncompress` prefers the port's native Huffman decode
+(csrc/host/exr_huf.cpp through native.py, a copy of the JAX package's);
+the pure-Python table-driven decoder below behaves the same and runs where
+TPU_RAYTRACING_NO_NATIVE is set.
 """
 from __future__ import annotations
 
 from typing import List, Tuple
 
 import numpy as np
+
+from .. import native
 
 BITMAP_SIZE = 8192
 USHORT_RANGE = 1 << 16
@@ -483,6 +486,9 @@ def _huf_uncompress_py(comp: bytes, n_out: int) -> np.ndarray:
 
 
 def huf_uncompress(comp: bytes, n_out: int) -> np.ndarray:
+    lib = native.get_lib()
+    if lib is not None:
+        return native.huf_uncompress_native(lib, comp, n_out)
     return _huf_uncompress_py(comp, n_out)
 
 
