@@ -11,11 +11,16 @@ Phases (any failure exits nonzero and prints no result):
    pair, skip-link walk) against its plain PyTorch version on the same
    CUDA tensors, on the coated_diffuse_bunny tables: closest-hit on 65,536
    random rays plus the frame's camera rays, any-hit on random rays plus
-   the frame's shadow rays. At the path's shape (the frame's camera rays,
+   the frame's shadow rays; the brute kernel also on rays at its
+   prefilter's edges (`edge_rays`), on the bunny and on a mesh whose every
+   hit is an equal-t tie (`repeated_triangles`), then with t_min or t_max
+   at each hit's t. At the path's shape (the frame's camera rays,
    its shadow rays) each is timed (the wrapper by CUDA events) and its
    per-ray counters are read once, from which the card's bound for the same
    work is computed. ptxas's registers, spills and stack frame of the bvh8t
-   walk's instantiations are printed beside its card layout's sizes;
+   walk's instantiations and of the brute kernel are printed beside the
+   card layout's sizes, and the brute kernel's times beside those before
+   its redesign (`BRUTE_BEFORE`);
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel (launch counts reset
    just before, read just after). A copy of every ray batch the frame hands
@@ -26,15 +31,19 @@ Phases (any failure exits nonzero and prints no result):
 6. the kernel switch: the 500x500 frame at 1 spp, depth 8, rendered on cuda
    with bvh8t and then with each walk the JAX switch selects
    (TPU_RT_PALLAS_KERNEL, TPU_RT_BRUTE_GROUPS), its launch counts reset
-   just before and read just after, and held against the bvh8t frame;
+   just before and read just after and each call of its walk timed by
+   CUDA events, and held against the bvh8t frame;
 7. builtin scenes: the five beauty scenes with a sphere as full frames on
    cuda at their builtin settings (out_of_focus_sphere 36 spp, 6x6
    stratified; dielectric, metal, rough_metal and rough_dielectric 32 spp;
    depth 8, 4 light samples), launch counts reset just before and read
-   just after each; on metal, the bvh8t walk on camera rays with
-   and without the sphere's cut of t_max, and on shadow rays with and
-   without the sphere-occluded lanes; one 1,024-pixel block on each
-   sphere at 2 spp on cuda against cpu; the normals-only scenes
+   just after each and its walk's calls timed by CUDA events; on metal,
+   the bvh8t walk on camera rays with and without the sphere's cut of
+   t_max, and on shadow rays with and without the sphere-occluded lanes,
+   then the metal frame again through the brute kernel
+   (TPU_RT_BRUTE_GROUPS=12, its one triangle block), its calls timed too,
+   held against its bvh8t frame with phase 6's limits; one 1,024-pixel
+   block on each sphere at 2 spp on cuda against cpu; the normals-only scenes
    (sphere, cube, cube_orthographic) at 400x400 on cuda against cpu; then
    the textures and lights: checkered_plane (480x270, 1 spp),
    environment_light (500x500, 32 spp) and the emissive Cornell box
@@ -96,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -150,10 +160,15 @@ IDLE_RAY_BYTES = 5 + 8
 SLAB_OPS = 24
 MT_OPS = 44
 N_RANDOM_RAYS = 65536
+N_EDGE_RAYS = 16384  # rays at the brute kernel's prefilter edges (phase 3)
 # closest-hit: equal-t ties between different leaves may pick different
 # triangles (a kernel and its plain version may visit leaves in another
 # order); the brute kernel repeats its plain version's order bit for bit
 EXACT = ("brute",)
+# K3 before its redesign: the kernel of commit 70d5b21, wrapper ms at the
+# path's shape on an H100 80GB HBM3 at 700 W (PERF.md section 6, K3's row)
+BRUTE_BEFORE = dict(commit="70d5b21", ms=46.818, any_hit_ms=33.053,
+                    card="NVIDIA H100 80GB HBM3, 700.00 W")
 MAX_TIE_FRACTION = 1e-4
 T_RTOL = 1e-5
 # slice parity. Both devices draw the same random numbers and trace the
@@ -385,6 +400,73 @@ def random_rays(ds, n: int, seed: int, device):
     return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
 
 
+def edge_rays(ds, n: int, seed: int) -> tuple:
+    """Rays aimed at the edges of the brute kernel's prefilter on the
+    triangle rows of ds's card layout, from either side at a random tilt: a
+    quarter at vertices, a quarter on edges (u or v 0, u + v 1), a quarter
+    just inside or outside an edge (by 1e-7, 1e-5, 1.2e-5, 2^-16 or 1.6e-5
+    of the triangle), a quarter nearly parallel to the triangle (den near
+    0, tilts of 0 to 1e-3). t_min 1e-4; half the lanes have a finite
+    t_max; every 7th lane is inactive. Returns numpy (o, d, t_min, t_max,
+    active)."""
+    g = np.random.default_rng(seed)
+    tris = ds.t8_card.tris.cpu().numpy().astype(np.float64)
+    rows = g.integers(0, tris.shape[0], n)
+    p0, e1, e2 = tris[rows, 0:3], tris[rows, 3:6], tris[rows, 6:9]
+
+    def unit(v):
+        return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True),
+                              1e-30)
+
+    nrm = unit(np.cross(e1, e2))
+    kind, side = g.integers(0, 4, n), g.integers(0, 3, n)
+    w = g.uniform(0.0, 1.0, n)
+    off = (np.array([1e-7, 1e-5, 1.2e-5, 2.0 ** -16, 1.6e-5])[
+        g.integers(0, 5, n)] * g.choice([-1.0, 1.0], n))
+    at = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])[side]  # vertices
+    edge = np.stack([np.where(side == 0, w, 0.0),  # v = 0, u = 0, u + v = 1
+                     np.where(side == 1, w, np.where(side == 2, 1 - w, 0.0))],
+                    axis=1)
+    edge[side == 2, 0] = w[side == 2]
+    near = edge.copy()  # the edge moved out (off > 0) or in by `off`
+    near[side == 0, 1] = -off[side == 0]
+    near[side == 1, 0] = -off[side == 1]
+    near[side == 2] *= (1.0 + off[side == 2])[:, None]
+    uv = np.where((kind == 0)[:, None], at,
+                  np.where((kind == 1)[:, None], edge,
+                           np.where((kind == 2)[:, None], near,
+                                    np.stack([w / 2, np.full(n, 0.25)], 1))))
+    p = p0 + uv[:, :1] * e1 + uv[:, 1:] * e2
+    size = np.linalg.norm(e1, axis=1) + np.linalg.norm(e2, axis=1)
+    h = g.uniform(0.05, 2.0, n) * size * g.choice([-1.0, 1.0], n)
+    o = p + nrm * h[:, None] + g.normal(0.0, 0.5, (n, 3)) * np.abs(h)[:, None]
+    d = unit(p - o)
+    flat = kind == 3  # nearly in the triangle's plane, through p
+    tilt = np.array([0.0, 1e-7, 1e-5, 1e-3])[g.integers(0, 4, n)]
+    d_flat = unit(unit(e1 - e2 * g.uniform(-1, 1, (n, 1)))
+                  + nrm * (tilt * g.choice([-1.0, 1.0], n))[:, None])
+    d = np.where(flat[:, None], d_flat, d)
+    o = np.where(flat[:, None], p - d_flat * np.abs(h)[:, None], o)
+    t_max = np.where(np.arange(n) % 2 == 0, np.inf,
+                     g.uniform(0.5, 3.0, n) * np.abs(h))
+    return (o.astype(np.float32), d.astype(np.float32),
+            np.full(n, 1e-4, np.float32), t_max.astype(np.float32),
+            np.arange(n) % 7 != 3)
+
+
+def at_t_limits(args, t, best) -> list:
+    """A ray batch with each hit lane's t limits at its hit: a third with
+    t_min = t, a third with t_max = t, a third with t_max one float below
+    t."""
+    o, d, t_min, t_max, active = args
+    hit = best >= 0
+    k = torch.arange(t.shape[0], device=t.device) % 3
+    below = torch.nextafter(t, torch.full_like(t, -float("inf")))
+    return [o, d, torch.where(hit & (k == 0), t, t_min),
+            torch.where(hit & (k == 1), t,
+                        torch.where(hit & (k == 2), below, t_max)), active]
+
+
 def walks():
     """walk -> (kernel wrapper, plain version)."""
     from tpu_raytracing_torch.ops import traverse_kernels as TK
@@ -587,11 +669,15 @@ def phase_kernel(ds, settings, ptxas_log: str) -> dict:
     print(f"# bvh8t card layout: {card.nodes.shape[0]} node records, "
           f"{card.children.shape[0]} child records, {card.tris.shape[0]} "
           f"triangle rows", flush=True)
-    for r in ptxas_report(ptxas_log, KERNEL_OF["bvh8t"]):
-        print(f"# ptxas bvh8t_walk {r['instance']}: {r.get('registers')} "
-              f"registers, {r.get('spill_stores')} / {r.get('spill_loads')} "
-              f"bytes spill stores / loads, {r.get('stack_frame')} bytes stack "
-              f"frame, {r.get('smem')} bytes shared memory", flush=True)
+    ptxas = {}
+    for walk in ("bvh8t", "brute"):
+        ptxas[walk] = ptxas_report(ptxas_log, KERNEL_OF[walk])
+        for r in ptxas[walk]:
+            print(f"# ptxas {KERNEL_OF[walk]} {r['instance']}: "
+                  f"{r.get('registers')} registers, {r.get('spill_stores')} / "
+                  f"{r.get('spill_loads')} bytes spill stores / loads, "
+                  f"{r.get('stack_frame')} bytes stack frame, {r.get('smem')} "
+                  f"bytes shared memory", flush=True)
     stats = {}
     ok = True
     for walk, (kernel, plain) in walks().items():
@@ -600,6 +686,38 @@ def phase_kernel(ds, settings, ptxas_log: str) -> dict:
                 ds, walk, kernel, plain, args, path_shape[mode],
                 " at the path's shape")
             ok = ok and mode_ok
+    # the brute kernel at its prefilter's edges, on the bunny and on a mesh
+    # whose every hit is an equal-t tie
+    from tpu_raytracing_torch.device import compile_scene
+
+    kernel, plain = walks()["brute"]
+    ties = compile_scene(repeated_triangles(), ds.device)
+    for (mode, seed), (name, accel) in itertools.product(
+            (("closest_hit", 5), ("any_hit", 6)),
+            (("the bunny", ds), ("repeated triangles", ties))):
+        edges = [torch.from_numpy(x).to(ds.device)
+                 for x in edge_rays(accel, N_EDGE_RAYS, seed)]
+        held = (edges, at_t_limits(edges, *plain(accel, *edges)))
+        for label, args in zip(("edge rays", "edge rays at their hits' t"),
+                               held):
+            tp, bp = plain(accel, *args, mode == "any_hit")
+            tk, bk = kernel(accel, *args, mode == "any_hit")
+            torch.cuda.synchronize()
+            edge_ok, _, report = compare("brute", mode, tk, bk, tp, bp)
+            print(f"# brute {mode} on {name}, {label}: {report}: "
+                  f"{'ok' if edge_ok else 'FAIL'}", flush=True)
+            ok = ok and edge_ok
+    for mode in batches:
+        st = stats["brute", mode]
+        st["ptxas"] = ptxas["brute"]
+        was = BRUTE_BEFORE["ms" if mode == "closest_hit" else "any_hit_ms"]
+        print(f"# brute {mode} (redesigned) at the path's shape: kernel "
+              f"{st['ms']:.4f} ms against {was} ms before the redesign "
+              f"({BRUTE_BEFORE['commit']}, {BRUTE_BEFORE['card']}), "
+              f"{was / st['ms']:.2f}x; "
+              f"bound {st['bound_ms']:.4f} ms, "
+              f"{st['bound_ms'] / st['ms'] * 100:.2f}% of the kernel time",
+              flush=True)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version")
     return stats
@@ -650,6 +768,42 @@ def kept_batches(walk: str, store: list, calls=None, accels=None,
         yield
     finally:
         TK.WALKS[walk] = fn
+
+
+def fmt_walk_ms(in_frame: dict) -> str:
+    return ", ".join(f"{mode} {n} in {ms:.3f} ms"
+                     for mode, (n, ms) in sorted(in_frame.items()))
+
+
+def walk_ms(spans) -> dict:
+    """mode -> (calls, milliseconds of the walk calls in all, by their CUDA
+    events) from kept_batches' `spans`, after a synchronize."""
+    out = {}
+    for _, mode, start, end in spans:
+        n, ms = out.get(mode, (0, 0.0))
+        out[mode] = (n + 1, ms + start.elapsed_time(end))
+    return out
+
+
+def timed_frame(walk: str, ds, s, env: dict) -> tuple:
+    """Render ds at settings s through the kernel switch set to `env`, the
+    launch counts reset just before and read just after, every call of
+    `walk` bracketed by CUDA events. Returns (result, wall seconds, launch
+    counts, walk_ms)."""
+    from tpu_raytracing_torch.integrator.render import render
+    from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
+
+    spans = []
+    with kernel_switch(**env):
+        reset_launch_counts()
+        with kept_batches(walk, [], calls=(), spans=spans):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = render(ds, s)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = launch_counts()
+    return res, wall, launches, walk_ms(spans)
 
 
 def phase_full_frame(scene, settings, card: str, store: list,
@@ -738,10 +892,7 @@ def phase_switch(scene, settings, card: str) -> dict:
     """The 1-spp frame through each walk of the kernel switch, against the
     bvh8t frame of the same phase; returns walk -> launch counts."""
     from tpu_raytracing_torch.device import compile_scene
-    from tpu_raytracing_torch.integrator.render import render
-    from tpu_raytracing_torch.ops.traverse_kernels import (
-        reset_launch_counts, t8_groups,
-    )
+    from tpu_raytracing_torch.ops.traverse_kernels import t8_groups
 
     ds = compile_scene(scene)
     s = dataclasses.replace(settings, samples_per_pixel=1)
@@ -757,14 +908,7 @@ def phase_switch(scene, settings, card: str) -> dict:
     out, ok = {}, True
     ref = None
     for walk, env in runs.items():
-        with kernel_switch(**env):
-            reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = render(ds, s)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = launch_counts()
+        res, wall, launches, in_frame = timed_frame(walk, ds, s, env)
         img = res.beauty
         mine = launches[walk]
         others = {w: c for w, c in launches.items()
@@ -794,7 +938,8 @@ def phase_switch(scene, settings, card: str) -> dict:
               f"rays, "
               f"{res.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; mean "
               f"{float(img.mean()):.6g}; launches {mine}, other walks "
-              f"{others}{note}: {'ok' if run_ok else 'FAIL'}", flush=True)
+              f"{others}; the walk's calls in the frame {fmt_walk_ms(in_frame)}"
+              f"{note}: {'ok' if run_ok else 'FAIL'}", flush=True)
         out[walk] = mine
     if not ok:
         raise AssertionError("a walk of the kernel switch failed its frame")
@@ -883,6 +1028,48 @@ def sphere_cut_effect(ds, settings, card: str) -> tuple:
     return ok, out
 
 
+def brute_frame(name: str, ds, s, bvh8t, card: str) -> tuple:
+    """Scene `name`'s frame through the brute kernel (TPU_RT_BRUTE_GROUPS
+    at its group count), its calls timed by CUDA events, held against the
+    phase's bvh8t frame with phase 6's limits. bvh8t: that frame's
+    (result, wall seconds, walk_ms). Returns (ok, stats)."""
+    from tpu_raytracing_torch.ops.traverse_kernels import t8_groups
+
+    ref, ref_wall, bvh8t_ms = bvh8t
+    groups = t8_groups(ds)
+    res, wall, launches, brute_ms = timed_frame(
+        "brute", ds, s, dict(TPU_RT_PALLAS_KERNEL="bvh8t",
+                             TPU_RT_BRUTE_GROUPS=str(groups)))
+    img, want = res.beauty, ref.beauty
+    mine = launches["brute"]
+    others = {w: c for w, c in launches.items() if w != "brute"
+              and any(c.values())}
+    close = float(np.all(np.isclose(img, want, rtol=SWITCH_PIXEL_RTOL,
+                                    atol=0), axis=-1).mean())
+    mean_rel = abs(float(img.mean()) - float(want.mean())) / float(want.mean())
+    rays_rel = abs(res.rays_traced - ref.rays_traced) / ref.rays_traced
+    ok = (min(mine.values()) > 0 and not others
+          and bool(np.isfinite(img).all()) and close >= SWITCH_MIN_CLOSE
+          and mean_rel <= SWITCH_MEAN_RTOL and rays_rel <= SWITCH_RAYS_RTOL)
+    mrays = res.rays_traced / wall / 1e6
+    bvh8t_mrays = ref.rays_traced / ref_wall / 1e6
+    print(f"# scene {name} through brute (TPU_RT_BRUTE_GROUPS={groups}, "
+          f"{ds.t8_card.tris.shape[0]} triangle rows): {wall:.3f} s wall, "
+          f"{res.rays_traced} rays, {mrays:.3f} Mrays/s, brute calls "
+          f"{fmt_walk_ms(brute_ms)}; through bvh8t {ref_wall:.3f} s wall, "
+          f"{bvh8t_mrays:.3f} Mrays/s, bvh8t calls {fmt_walk_ms(bvh8t_ms)}; "
+          f"on {card}; launches {mine}, other walks {others}; against "
+          f"bvh8t: {close * 100:.4f}% of pixels within rtol "
+          f"{SWITCH_PIXEL_RTOL} (limit {SWITCH_MIN_CLOSE * 100:.0f}%), mean "
+          f"rel {mean_rel:.2e} (limit {SWITCH_MEAN_RTOL}), rays rel "
+          f"{rays_rel:.2e} (limit {SWITCH_RAYS_RTOL}): "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok, dict(groups=groups, launches=mine, wall_s=wall,
+                    mrays_per_s=mrays, walk_ms=brute_ms,
+                    bvh8t_wall_s=ref_wall, bvh8t_mrays_per_s=bvh8t_mrays,
+                    bvh8t_walk_ms=bvh8t_ms, close=close, mean_rel=mean_rel)
+
+
 def phase_builtin_scenes(card: str, frames: dict) -> dict:
     """The builtin scenes this slice brings: the five beauty scenes with a
     sphere as full frames on cuda at their builtin settings, one block of
@@ -904,13 +1091,8 @@ def phase_builtin_scenes(card: str, frames: dict) -> dict:
         ts = get_test_scene(name)
         scene, s = ts.scene_func(), ts.settings_func()
         ds = compile_scene(scene)
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = render(ds, s)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = launch_counts()["bvh8t"]
+        res, wall, launches, in_frame = timed_frame("bvh8t", ds, s, {})
+        launches = launches["bvh8t"]
         img = res.beauty
         mean = float(img.mean())
         cornell = ds.meta.n_tris > 0
@@ -926,11 +1108,14 @@ def phase_builtin_scenes(card: str, frames: dict) -> dict:
               f"{res.rays_traced} rays, "
               f"{res.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; mean "
               f"{mean:.6g}; bvh8t launches {launches}"
-              f"{'' if cornell else ' (no triangles: no walk, by design)'}: "
+              f"{'' if cornell else ' (no triangles: no walk, by design)'}"
+              f"{'; its calls ' + fmt_walk_ms(in_frame) if cornell else ''}: "
               f"{'ok' if frame_ok else 'FAIL'}", flush=True)
         if name == "metal":
             cut_ok, out["sphere_cut"] = sphere_cut_effect(ds, s, card)
-            ok = ok and cut_ok
+            brute_ok, out["metal_brute"] = brute_frame(
+                name, ds, s, (res, wall, in_frame), card)
+            ok = ok and cut_ok and brute_ok
 
         # one 1,024-pixel block on the sphere, cuda against cpu, at 2 spp
         s2 = dataclasses.replace(s, samples_per_pixel=2)
@@ -1020,6 +1205,32 @@ def emissive_box(tmod=None, mmod=None, geom=None):
     sb.add_shape_with_transform(
         geom.TriangleMesh(quad), mat, geom.Transform.identity(),
         area_light_radiance=np.array([5.0, 5.0, 5.0], np.float32))
+    return sb.build()
+
+
+def repeated_triangles(tmod=None, mmod=None, geom=None):
+    """A mesh of 12 seeded triangles that overlap in depth, each listed 20
+    times, under a 32x32 camera at the origin looking down -z: the bvh8t
+    layout splits the copies of a triangle over two groups of 10, so a ray
+    meets equal-t ties inside a group and across groups. Modules as
+    emissive_box's."""
+    tmod, mmod, geom = _scene_modules(tmod, mmod, geom)
+    g = np.random.default_rng(3)
+    verts, tris = [], []
+    for k in range(12):
+        c = np.array([(k % 3) * 0.5 - 0.5, (k // 3 % 2) * 0.5 - 0.25,
+                      -2.0 - 0.25 * k])
+        verts.extend(c + g.uniform(-0.5, 0.5, (3, 3)) * [1.0, 1.0, 0.1])
+        tris.extend([[3 * k, 3 * k + 1, 3 * k + 2]] * 20)
+    sb = tmod.SceneBuilder()
+    white = sb.add_constant_texture(tmod.v4(1, 1, 1, 1))
+    mat = sb.add_material(mmod.Diffuse(albedo=white))
+    mesh = tmod.make_mesh(np.array(verts, np.float32), tris,
+                          np.tile([0.0, 0.0, 1.0], (len(verts), 1)))
+    sb.add_shape_at_position(geom.TriangleMesh(mesh), mat, tmod.v3(0, 0, 0))
+    sb.add_camera(tmod.Camera.lookat_camera_perspective(
+        tmod.v3(0, 0, 0), tmod.v3(0, 0, -3), tmod.v3(0, 1, 0), False,
+        np.deg2rad(60.0), 32, 32))
     return sb.build()
 
 
@@ -2036,6 +2247,9 @@ def kernel_entries(stats: dict, frame: dict, switch: dict,
         if len(modes) > 1:
             entry["launches_by_mode"] = switch[walk]
             entry["any_hit"] = stats[walk, "any_hit"]
+        if walk == "brute":
+            entry["redesigned"] = True
+            entry["metal_frame"] = scenes["metal_brute"]
         kernels.append(entry)
     for mode in ("closest_hit", "any_hit"):
         kernels.append(dict(

@@ -30,7 +30,10 @@ from tpu_raytracing_torch.probes import walk_cost as P1
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
-from chip_smoke import bunnies_glb, emissive_box, textured_cubes
+from chip_smoke import (
+    at_t_limits, bunnies_glb, edge_rays, emissive_box, repeated_triangles,
+    textured_cubes,
+)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -159,6 +162,79 @@ def test_counts(cuda_scene, walk):
     assert np.all(c[act, 0] > 0) and np.all(c[act, 2] >= 0)
     if walk == "brute":
         assert np.all(c[act, 2] == ds.meta.n_tris)
+
+
+@pytest.fixture(scope="module")
+def brute_scenes(cuda_scene):
+    """The bunny (28,586 triangle rows, 224 ring tiles), metal (10 rows,
+    one triangle block, one tile) and a mesh of repeated triangles (240
+    rows, equal-t ties inside and across groups) on the card."""
+    return {"bunny": cuda_scene,
+            "metal": compile_scene(get_test_scene("metal").scene_func(),
+                                   "cuda"),
+            "repeated": compile_scene(repeated_triangles(), "cuda")}
+
+
+def _brute_vs_plain(ds, args, early_exit):
+    """One launch of K3 against its plain version, bit for bit; returns
+    the plain (t, best)."""
+    reset_launch_counts()
+    tk, bk = TK.intersect_tris_brute(ds, *args, early_exit)
+    mode = "any_hit" if early_exit else "closest_hit"
+    assert TK.intersect_tris_brute.launches[mode] == 1
+    tp, bp = TK.intersect_tris_brute_plain(ds, *args, early_exit)
+    torch.cuda.synchronize()
+    _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit,
+                  exact=True)
+    return tp, bp
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("n", [1, 127, 513, 16385])
+@pytest.mark.parametrize("scene", ["bunny", "metal"])
+def test_brute_bit_for_bit(brute_scenes, scene, n, early_exit):
+    """The redesigned K3 at ray counts that fill no whole block or slot,
+    every 7th lane inactive and every other lane with its own t_max."""
+    ds = brute_scenes[scene]
+    args = _rays(ds, n, 40 + n, early_exit)
+    g = np.random.default_rng(n)
+    own = torch.from_numpy(g.uniform(0.05, 2.0, n).astype(np.float32)
+                           * float(ds.bounds_radius)).to(ds.device)
+    args[3] = torch.where(torch.arange(n, device=ds.device) % 2 == 1, own,
+                          args[3])
+    _, bp = _brute_vs_plain(ds, args, early_exit)
+    if n > 1000:
+        assert (bp >= 0).sum() > n // 4
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("scene", ["bunny", "metal", "repeated"])
+def test_brute_edge_rays(brute_scenes, scene, early_exit):
+    """K3 on rays at its prefilter's edges (vertices, edges, just inside
+    and outside them, nearly parallel; chip_smoke.py::edge_rays), then on
+    the same rays with t_min or t_max at each hit's t; on the repeated
+    triangles every hit is an equal-t tie."""
+    ds = brute_scenes[scene]
+    args = [torch.from_numpy(x).to(ds.device)
+            for x in edge_rays(ds, 16384, 50)]
+    tp, bp = _brute_vs_plain(ds, args, early_exit)
+    assert (bp >= 0).sum() > 4096
+    _brute_vs_plain(ds, at_t_limits(args, tp, bp), early_exit)
+
+
+def test_brute_repeats_bit_for_bit(cuda_scene):
+    """Three launches of K3 on the same rays, bit-equal to each other and
+    to the plain version."""
+    ds = cuda_scene
+    args = _rays(ds, 65536, 23, False)
+    tp, bp = TK.intersect_tris_brute_plain(ds, *args)
+    runs = [TK.intersect_tris_brute(ds, *args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for tk, bk in runs:
+        assert torch.equal(bk, bp)
+        assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
 
 
 def test_stack_caps_raise(cuda_scene):

@@ -1,119 +1,403 @@
-// Treeless brute-force triangle query: every ray tests every bvh8t group.
+// Treeless brute-force triangle query: every ray tests every bvh8t triangle.
 //
 // Replaces tpu_raytracing/ops/traverse_pallas.py::_t8_brute_kernel
 // (launched by _t8_brute_tiles), which the JAX package selects for the
 // bvh8t kind when the scene has at most TPU_RT_BRUTE_GROUPS triangle
-// groups. It reads the bvh8t triangle blocks as the walk does
-// (bvh8t_walk.cu):
+// groups. The TPU kernel looped over every group of the bvh8t triangle
+// blocks, padding rows included, for a tile of rays in the vector unit.
 //
-//   block b, row r < LG:  tris[(b * LG + r) * 128 + j * 10 + k], group 12 b + j,
-//                         k 0-2 p0, 3-5 e1, 6-8 e2, 9 triangle id as int32 bits;
-//                         padding rows and groups are zero and fail den != 0
+// It reads the bvh8t walk's card layout (DeviceScene.t8_card, built by
+// device/scene_buffers.py from the same JAX tables):
 //
-// The TPU kernel looped over all groups for a tile of rays in the vector
-// unit. Here a block of 128 threads (one ray each) stages one triangle block
-// (12 groups x LG rows, 8 KB at LG = 16) in shared memory with coalesced
-// loads, and every thread tests all of it; the reads are broadcasts. That is
-// the natural first design for a dense rays x triangles loop.
+//   tris[row]   = (p0, e1, e2, id bits, 0, 0)  48 B, only the rows that
+//                 hold a triangle, group by group in group order
+//   groups[row] = the row's bvh8t group; -1 pads it to a multiple of 4
 //
-// Tie rules are the TPU kernel's (traverse_pallas.py:1551-1568): inside a
-// group the least t wins and equal t goes to the lowest id; across groups a
-// group whose minimum passes t <= t_best replaces the winner, so the later
-// group wins an equal t. There is no early exit: any-hit calls get the
-// closest hit, as in JAX.
+// The zero rows that pad a group (30% of the bunny's 40,896, 95% of a
+// Cornell scene's block) have den == 0 for every ray, so leaving them out
+// changes no result.
 //
-// What bounds it on the H100: arithmetic. Every ray does NG x LG
-// Moller-Trumbore tests (40,896 on the bunny, of which 28,586 are on real
-// triangles and the rest on the zero rows that pad the groups), each with
-// three IEEE divides, so it is bound by fp32 issue, not by memory; the
-// staged tiles come from L2.
-// A later version would test several rays per thread against register-held
-// triangles, or drop to the walk, which prunes all but a few groups.
+// What bounds it on the H100: fp32 issue. Every ray tests every row
+// (28,586 on the bunny), a test is 36 multiplies and adds before any
+// divide, and with -fmad=false (t bit-equal to the plain version) none of
+// them fuse. The design:
+//
+// - Several rays a thread. A block of 128 threads takes 128 s lanes,
+//   strided over the batch (block b: lanes b, b + grid, b + 2 grid, ...,
+//   so that every block holds about the batch's share of live lanes),
+//   compacts its active ones with ballots and hands each thread up to s of
+//   them, held in registers. s (1-4) is the one whose grid the SMs finish
+//   first: 3 for a 250,000-ray batch. Every row read from shared memory
+//   (three broadcast loads) is tested against all of a thread's rays: a
+//   third of the loads a test, and three independent chains in flight.
+//   Inactive lanes cost nothing past the compaction.
+// - A ring of tiles. The rows stream through up to kStages = 3 tiles of
+//   kTileRows = 128 rows (6.5 KB with their groups) in shared memory.
+//   Thread 0 fills a tile with two cp.async.bulk copies (TMA) that
+//   complete on the tile's mbarrier, and refills it after the barrier that
+//   ends its use, so the next two tiles arrive while the block tests this
+//   one. A table of one tile gets one stage of its own size (a Cornell
+//   scene: 12 rows, 624 B).
+// - An exact prefilter. surely_misses() rejects, from den and the
+//   numerators of u and v alone (8 operations), every row whose triangle
+//   the ray's line passes outside of by more than about 2^-16 of |den|.
+//   Only the others, the few rows a ray's line pierces, take the three
+//   IEEE divides of the full test, which is tri_hit itself.
+//
+// Ties are the TPU kernel's (traverse_pallas.py:1551-1568): inside a group
+// the least t wins and equal t goes to the lowest id; every row of a group
+// is tested against the t_best from before the group, and a later group
+// wins an equal t. That rule picks, among the rows that pass the full test
+// against t_max with t < inf, the least (t, -group, id): a group replaces
+// the winner iff its least t is at most every earlier group's, so the
+// last group that holds the least t keeps it, with its lowest id there. A
+// thread therefore keeps (t, group, id) per ray and tests each row against
+// its running t: the same winner and t bits in any row order. There is no
+// early exit: any-hit calls get the closest hit, as in JAX.
 
 #include "traverse_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;
-constexpr int kGroupsPerBlock = 12;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = 4;              // rays a thread, at most (s)
+constexpr int kTileRows = 128;         // rows a ring stage holds
+constexpr int kStages = 3;
+constexpr int kRowWords = 12;          // p0 e1 e2, id, 0, 0
+constexpr int kRowBytes = kRowWords * 4;
+constexpr int kStageRowBytes = kRowBytes + 4;  // and the row's group
+constexpr float kMargin = 0x1p-16f;    // the prefilter's margin
 
-__global__ void t8_brute(const float* __restrict__ tris,
-                         const float* __restrict__ origin,
-                         const float* __restrict__ direction,
-                         const float* __restrict__ t_min_in,
-                         const float* __restrict__ t_max_in,
-                         const bool* __restrict__ active,
-                         float* __restrict__ t_out, int* __restrict__ best_out,
-                         int* __restrict__ counts, int n_rays,
-                         int n_tri_blocks, int leaf_rows) {
-  extern __shared__ float4 tile4[];
-  const float* tile = reinterpret_cast<const float*>(tile4);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n_rays;
-  const bool live = in_range && active[i];
-  float t_best = in_range ? t_max_in[i] : 0.0f;
-  int best = -1;
-  int groups = 0, tests = 0;  // the counters: groups and rows that hold data
-  tpu_rt::Ray ray{};
-  if (live) ray = tpu_rt::load_ray(origin, direction, t_min_in, i);
+struct Args {
+  const float* tris;
+  const int* groups;
+  const float* origin;
+  const float* direction;
+  const float* t_min;
+  const float* t_max;
+  float* t_out;
+  int* best_out;
+  int* counts;
+  int n_records;
+  int tile_rows;  // a multiple of 4, so each stage's groups stay aligned
+  int n_tiles;
+  int n_stages;   // min(kStages, n_tiles)
+};
 
-  const int tile_f4 = leaf_rows * tpu_rt::kRow / 4;
-  for (int b = 0; b < n_tri_blocks; ++b) {
-    __syncthreads();  // every thread is done with the previous tile
-    const float4* src =
-        reinterpret_cast<const float4*>(tris) + (size_t)b * tile_f4;
-    for (int k = threadIdx.x; k < tile_f4; k += blockDim.x) tile4[k] = src[k];
-    __syncthreads();
-    if (!live) continue;
-    if (counts != nullptr) {
-      for (int j = 0; j < kGroupsPerBlock; ++j) {
-        const int used = tpu_rt::t8_used_rows(tile + j * 10, leaf_rows);
-        groups += used > 0;
-        tests += used;
-      }
-    }
-    for (int j = 0; j < kGroupsPerBlock; ++j) {
-      float tg = INFINITY;
-      int idg = 0x7fffffff;
-      for (int r = 0; r < leaf_rows; ++r) {
-        const float* row = tile + r * tpu_rt::kRow + j * 10;
-        float t;
-        if (tpu_rt::tri_hit(ray, row[0], row[1], row[2], row[3], row[4],
-                            row[5], row[6], row[7], row[8], t_best, &t)) {
-          const int id = __float_as_int(row[9]);
-          if (t < tg || (t == tg && id < idg)) {
-            tg = t;
-            idg = id;
-          }
-        }
-      }
-      if (tg < INFINITY) {
-        t_best = tg;
-        best = idg;
-      }
+// A ray a thread holds, with its winner so far.
+struct Lane {
+  tpu_rt::Ray ray;
+  float t;    // the least t so far (t_max at first)
+  int id;     // its triangle, -1 while there is none
+  int group;  // its group, -1 while there is none
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Block until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Thread 0: copy tile `tile` of the table (its rows and their groups) into
+// the stage at `dst`; the copies complete on `bar`. Both sources and
+// destinations are 16-byte aligned and every size is a multiple of 16.
+__device__ __forceinline__ void fill(const Args& a, unsigned char* dst,
+                                     int tile, uint64_t* bar) {
+  const int first = tile * a.tile_rows;
+  const int rows = min(a.tile_rows, a.n_records - first);
+  const uint32_t row_bytes = rows * kRowBytes;
+  const uint32_t group_bytes = ((rows + 3) & ~3) * 4;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(row_bytes + group_bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(a.tris + static_cast<size_t>(first) * kRowWords), "r"(row_bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst + a.tile_rows * kRowBytes)),
+      "l"(a.groups + first), "r"(group_bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The ray of lane i, or for i < 0 a slot with no ray: o = d = 0, so
+// den == nu == 0 and every row surely misses it (rule R3 below).
+__device__ __forceinline__ Lane load_lane(const Args& a, int i) {
+  Lane l{};
+  l.id = -1;
+  l.group = -1;
+  if (i >= 0) {
+    l.ray = tpu_rt::load_ray(a.origin, a.direction, a.t_min, i);
+    l.t = a.t_max[i];
+  }
+  return l;
+}
+
+// True only where tpu_rt::tri_hit rejects the row, decided without a
+// divide from den and the numerators nu, nv of u = nu / den, v = nv / den
+// (tri_hit's own values: see test_row). Write a = |den|, N = nu sgn(den),
+// M = nv sgn(den) (sign flips, exact) and T = a 2^-16 rounded up. IEEE
+// division is symmetric in sign, so tri_hit's u = fl(N / a), v = fl(M / a).
+// The rules:
+//   R1  N < -T                  (u below 0 by more than 2^-16)
+//   R2  M < -T                  (v likewise)
+//   R3  fl(fl(N - a) + M) >= T  (u + v above 1 by about 2^-16 or more)
+// One of them holds outside the triangle grown by about 2^-16; u <= 1 needs
+// no rule, as v >= 0 and u + v <= 1 give it. Suppose tri_hit accepts the
+// row: den != 0, no NaN, u >= -eps, v >= -eps, u <= c and fl(u + v) <= c,
+// with eps = fl(1e-5) < 84 2^-23 and c = 1 + 84 2^-23; and
+// T >= a 2^-16 = 128 2^-23 a. If a = inf, T = inf and N, M are finite (else
+// u or v would be NaN): no rule holds. Else a is finite and positive, and
+// - R1: N / a <= -2^-16 would round to at most -2^-16 < -eps (rounding is
+//   monotone), so N > -a 2^-16 >= -T. R2 the same with v.
+// - R3: here |u|, |v| < 1.0001, so N / a and M / a lie within 0.51 2^-23
+//   of u and v, and u + v <= c + 2^-24: N + M - a <= 85.52 2^-23 a.
+//   fl(N - a) is exact (Sterbenz) unless N < a / 2, where it adds at most
+//   0.51 2^-23 a, and fl(. + M) adds a relative 2^-24 or 2^-150: the left
+//   side is below 86.04 2^-23 a + 2^-150 < T while a > 2^-132.4. Below
+//   that every value is a multiple of 2^-149 under 2^-126, so both sums
+//   are exact and it is at most 85.52 2^-23 a < T.
+// So no rule holds. Neither den == 0 nor NaN needs a rule: tri_hit rejects
+// those rows itself. Nothing here depends on t_min or t.
+__device__ __forceinline__ bool surely_misses(float den, float nu,
+                                              float nv) {
+  const int sign = __float_as_int(den) & 0x80000000;
+  const float n = __int_as_float(__float_as_int(nu) ^ sign);
+  const float m = __int_as_float(__float_as_int(nv) ^ sign);
+  const float a = fabsf(den);
+  const float t = __fmul_ru(a, kMargin);
+  return (n < -t) | (m < -t) | ((n - a) + m >= t);
+}
+
+// Row `row` (12 words in shared memory; `group` its group) against the
+// thread's S rays.
+template <int S>
+__device__ __forceinline__ void test_row(Lane (&l)[S], const float* row,
+                                         const int* group) {
+  const float4 c0 = *reinterpret_cast<const float4*>(row);
+  const float4 c1 = *reinterpret_cast<const float4*>(row + 4);
+  const float p0x = c0.x, p0y = c0.y, p0z = c0.z;
+  const float e1x = c0.w, e1y = c1.x, e1z = c1.y;
+  const float e2x = c1.z, e2y = c1.w, e2z = row[8];
+  bool may[S];  // ray r may hit the row
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const tpu_rt::Ray& ray = l[r].ray;
+    // tri_hit's den, u and v numerators: the same operations in the same
+    // order (traverse_common.cuh:89-99), so the same bits
+    const float pv0 = ray.dy * e2z - ray.dz * e2y;
+    const float pv1 = ray.dz * e2x - ray.dx * e2z;
+    const float pv2 = ray.dx * e2y - ray.dy * e2x;
+    const float den = pv0 * e1x + pv1 * e1y + pv2 * e1z;
+    const float tv0 = ray.ox - p0x, tv1 = ray.oy - p0y, tv2 = ray.oz - p0z;
+    const float nu = pv0 * tv0 + pv1 * tv1 + pv2 * tv2;
+    const float qv0 = tv1 * e1z - tv2 * e1y;
+    const float qv1 = tv2 * e1x - tv0 * e1z;
+    const float qv2 = tv0 * e1y - tv1 * e1x;
+    const float nv = qv0 * ray.dx + qv1 * ray.dy + qv2 * ray.dz;
+    may[r] = !surely_misses(den, nu, nv);
+    any |= may[r];
+  }
+  if (!any) return;  // every ray of the thread surely misses the row
+  const int id = __float_as_int(row[9]);
+  const int g = *group;
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    float t;
+    // tri_hit tests t <= l.t, so equal t is the only tie: a later group,
+    // or the same group's lower id, takes it
+    if (may[r] &&
+        tpu_rt::tri_hit(l[r].ray, p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z,
+                        l[r].t, &t) &&
+        t < INFINITY &&
+        (t < l[r].t || g > l[r].group || (g == l[r].group && id < l[r].id))) {
+      l[r].t = t;
+      l[r].id = id;
+      l[r].group = g;
     }
   }
-  if (!in_range) return;
-  t_out[i] = t_best;
-  best_out[i] = best;
-  tpu_rt::store_counts(counts, i, groups, 0, tests);
+}
+
+// The block's live lanes (lanes[0 .. total), S = ceil(total / kThreads)
+// slots a thread) against the whole table, streamed through the ring.
+template <int S>
+__device__ __forceinline__ void run(const Args& a, const int* lanes,
+                                    int total, unsigned char* ring,
+                                    uint64_t* full) {
+  int idx[S];
+  Lane l[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const int k = r * kThreads + threadIdx.x;
+    idx[r] = k < total ? lanes[k] : -1;
+    l[r] = load_lane(a, idx[r]);
+  }
+  const int stage_bytes = a.tile_rows * kStageRowBytes;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < a.n_stages; ++s)
+      fill(a, ring + s * stage_bytes, s, &full[s]);
+  int groups = 0, last_group = -1;  // the counters: groups with a row
+  for (int it = 0; it < a.n_tiles; ++it) {
+    const int s = it % a.n_stages;
+    bar_wait(&full[s], (it / a.n_stages) & 1);
+    const unsigned char* stage = ring + s * stage_bytes;
+    const float* rows = reinterpret_cast<const float*>(stage);
+    const int* grp =
+        reinterpret_cast<const int*>(stage + a.tile_rows * kRowBytes);
+    const int n = min(a.tile_rows, a.n_records - it * a.tile_rows);
+    if (a.counts != nullptr)
+      for (int k = 0; k < n; ++k) {
+        groups += grp[k] != last_group;
+        last_group = grp[k];
+      }
+    // two rows an iteration: one row's loads issue under the other's tests
+#pragma unroll 2
+    for (int k = 0; k < n; ++k) test_row<S>(l, rows + k * kRowWords, grp + k);
+    __syncthreads();  // every thread is done with stage s
+    if (threadIdx.x == 0 && it + a.n_stages < a.n_tiles) {
+      // order the block's reads of the stage before the copy's writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      fill(a, ring + s * stage_bytes, it + a.n_stages, &full[s]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    if (idx[r] < 0) continue;
+    a.t_out[idx[r]] = l[r].t;
+    a.best_out[idx[r]] = l[r].id;
+    tpu_rt::store_counts(a.counts, idx[r], groups, 0, a.n_records);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    t8_brute(Args a, const bool* __restrict__ active, int n_rays,
+             int block_lanes) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ int warp_live[kSlots * kWarps];
+  __shared__ int lanes[kSlots * kThreads];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // The block's active lanes, in lane order, into lanes[]; an inactive
+  // lane gets (t_max, -1) and no counts here. Block b takes lanes b,
+  // b + gridDim.x, b + 2 gridDim.x, ...: strided, so that every block
+  // holds about the batch's share of live lanes, wherever they cluster.
+  int pos[kSlots];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) {
+    const int i = blockIdx.x + (r * kThreads + threadIdx.x) * gridDim.x;
+    bool live = false;
+    if (r * kThreads < block_lanes && i < n_rays) {
+      live = active[i];
+      if (!live) {
+        a.t_out[i] = a.t_max[i];
+        a.best_out[i] = -1;
+        tpu_rt::store_counts(a.counts, i, 0, 0, 0);
+      }
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) warp_live[r * kWarps + warp] = __popc(m);
+    pos[r] = live ? __popc(m & ((1u << lane) - 1u)) : -1;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.n_stages; ++s) bar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int total = 0, off[kSlots];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (w == warp) off[r] = total;
+      total += warp_live[r * kWarps + w];
+    }
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+    if (pos[r] >= 0)
+      lanes[off[r] + pos[r]] =
+          blockIdx.x + (r * kThreads + threadIdx.x) * gridDim.x;
+  __syncthreads();
+  switch ((total + kThreads - 1) / kThreads) {  // the same in every thread
+    case 0:
+      return;
+    case 1:
+      run<1>(a, lanes, total, ring, full);
+      break;
+    case 2:
+      run<2>(a, lanes, total, ring, full);
+      break;
+    case 3:
+      run<3>(a, lanes, total, ring, full);
+      break;
+    default:
+      run<4>(a, lanes, total, ring, full);
+  }
 }
 
 }  // namespace
 
-extern "C" int tpu_rt_t8_brute(const float* tris, const float* origin,
-                               const float* direction, const float* t_min,
-                               const float* t_max, const bool* active,
-                               float* t_out, int* best_out, int* counts,
-                               int n_rays, int n_tri_blocks, int leaf_rows,
+extern "C" int tpu_rt_t8_brute(const float* tris, const int* groups,
+                               const float* origin, const float* direction,
+                               const float* t_min, const float* t_max,
+                               const bool* active, float* t_out, int* best_out,
+                               int* counts, int n_rays, int n_records,
                                void* stream) {
   if (n_rays <= 0) return 0;
-  if (leaf_rows <= 0 || leaf_rows > 32 || n_tri_blocks <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)leaf_rows * tpu_rt::kRow * sizeof(float);
-  const dim3 grid((n_rays + kBlock - 1) / kBlock);
-  t8_brute<<<grid, dim3(kBlock), smem, static_cast<cudaStream_t>(stream)>>>(
-      tris, origin, direction, t_min, t_max, active, t_out, best_out, counts,
-      n_rays, n_tri_blocks, leaf_rows);
+  if (n_records < 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // Rays a thread: the s of 1-4 whose grid the SMs finish first. The
+  // blocks run in about one wave, so the SM with the most of them sets the
+  // time, and a block's pass over a row costs about 44 s + 8 issue slots a
+  // thread (s tests, the loads and the loop); a larger s wins a tie. On an
+  // H100 80GB HBM3 at 700 W, at the bunny frame's 250,000 camera rays and
+  // their shadow rays, it takes 11% and 13% less time than s = 4 always
+  // (scripts/torch_brute_ab.py).
+  int block_lanes = kThreads * kSlots;
+  long best = -1;
+  for (int s = kSlots; s >= 1; --s) {
+    const long blocks = (n_rays + kThreads * s - 1) / (kThreads * s);
+    const long cost = (blocks + sms - 1) / sms * (44 * s + 8);
+    if (best < 0 || cost < best) {
+      best = cost;
+      block_lanes = kThreads * s;
+    }
+  }
+  Args a{tris, groups, origin, direction, t_min, t_max, t_out, best_out,
+         counts, n_records};
+  a.tile_rows = min(kTileRows, (n_records + 3) & ~3);
+  a.n_tiles = n_records == 0 ? 0 : (n_records + a.tile_rows - 1) / a.tile_rows;
+  a.n_stages = min(kStages, a.n_tiles);
+  const size_t smem = (size_t)a.n_stages * a.tile_rows * kStageRowBytes;
+  const dim3 grid((n_rays + block_lanes - 1) / block_lanes);
+  t8_brute<<<grid, dim3(kThreads), smem, static_cast<cudaStream_t>(stream)>>>(
+      a, active, n_rays, block_lanes);
   return (int)cudaGetLastError();
 }

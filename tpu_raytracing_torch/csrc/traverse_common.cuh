@@ -139,21 +139,6 @@ __device__ __forceinline__ void packed_leaf(const Ray& r,
   }
 }
 
-// Rows of a bvh8t group (p0, e1, e2, id at a row stride of kRow) that hold
-// a triangle: the rows that pad a group are zero in all nine vertex words.
-// Only the brute kernel's counting launches call it (the bvh8t walk's card
-// layout holds these rows only).
-__device__ __forceinline__ int t8_used_rows(const float* grp, int leaf_rows) {
-  int n = 0;
-  for (int r = 0; r < leaf_rows; ++r) {
-    const float* row = grp + r * kRow;
-    bool used = false;
-    for (int k = 0; k < 9; ++k) used = used || row[k] != 0.0f;
-    n += used;
-  }
-  return n;
-}
-
 __device__ __forceinline__ void store_counts(int* __restrict__ counts, int i,
                                              int visits, int boxes, int tests) {
   if (counts != nullptr) {

@@ -136,12 +136,16 @@ class SceneMeta:
 @dataclass(frozen=True)
 class Bvh8tCard:
     """The bvh8t walk's card layout (csrc/bvh8t_walk.cu), a pure function of
-    the JAX-identical t8 tables (`bvh8t_card_layout`)."""
+    the JAX-identical t8 tables (`bvh8t_card_layout`), and the group of each
+    triangle row, which the brute kernel (csrc/t8_brute.cu) reads beside
+    `tris` (`bvh8t_card_groups`)."""
 
     nodes: torch.Tensor     # (N8, 4) i32: first child record, n_int,
                             # n_leaf, child_base
     children: torch.Tensor  # (C, 8) f32: box min3 max3, link, rows (bits)
     tris: torch.Tensor      # (R, 12) f32: p0 e1 e2, id bits, 2 zero words
+    groups: torch.Tensor    # (R rounded up to 4,) i32: the group of each
+                            # row of tris, then -1
 
 
 class AccelMeta(NamedTuple):
@@ -643,10 +647,7 @@ def bvh8t_card_layout(node_blocks, meta, tri_blocks, w: int, lg: int):
     n_child = n_int + n_leaf
     first = np.concatenate([[0], np.cumsum(n_child)[:-1]]).astype(np.int64)
 
-    # groups (G, lg, 10) from the (blocks x lg, 128) blocks of 12 groups
-    g_all = np.asarray(tri_blocks).reshape(-1, lg, 128)[:, :, :120]
-    g_all = g_all.reshape(-1, lg, G8_PER_BLOCK, 10).transpose(0, 2, 1, 3)
-    grp = g_all.reshape(-1, lg, 10)[:int(n_leaf.sum())]
+    grp = _t8_groups(tri_blocks, lg)[:int(n_leaf.sum())]
     used = np.any(grp[:, :, :9] != 0, axis=2)
     rows = used.sum(axis=1)
     row0 = np.concatenate([[0], np.cumsum(rows)[:-1]]).astype(np.int64)
@@ -671,12 +672,31 @@ def bvh8t_card_layout(node_blocks, meta, tri_blocks, w: int, lg: int):
     return nodes.astype(np.int32), children, tris
 
 
+def _t8_groups(tri_blocks, lg: int) -> np.ndarray:
+    """(G, lg, 10) the groups of the (blocks x lg, 128) bvh8t triangle
+    blocks of 12 groups, in group order: p0 e1 e2 and the id of each row."""
+    g_all = np.asarray(tri_blocks).reshape(-1, lg, 128)[:, :, :120]
+    g_all = g_all.reshape(-1, lg, G8_PER_BLOCK, 10).transpose(0, 2, 1, 3)
+    return g_all.reshape(-1, lg, 10)
+
+
+def bvh8t_card_groups(tri_blocks, lg: int) -> np.ndarray:
+    """The group of each triangle row of `bvh8t_card_layout` (the rows that
+    hold a triangle, group by group), padded with -1 to a multiple of 4
+    entries, so that the brute kernel copies whole 16-byte words. The
+    groups past the leaves' are all zero, so they add no row."""
+    used = np.any(_t8_groups(tri_blocks, lg)[:, :, :9] != 0, axis=2)
+    g = np.repeat(np.arange(used.shape[0], dtype=np.int32), used.sum(axis=1))
+    return np.concatenate([g, np.full(-g.shape[0] % 4, -1, np.int32)])
+
+
 def bvh8t_card(node_blocks, meta, tri_blocks, w: int, lg: int,
                device) -> Bvh8tCard:
-    """`bvh8t_card_layout` as tensors on `device`."""
-    return Bvh8tCard(*(torch.from_numpy(a).to(device) for a in
-                       bvh8t_card_layout(node_blocks, meta, tri_blocks, w,
-                                         lg)))
+    """`bvh8t_card_layout` and `bvh8t_card_groups` as tensors on
+    `device`."""
+    arrays = (*bvh8t_card_layout(node_blocks, meta, tri_blocks, w, lg),
+              bvh8t_card_groups(tri_blocks, lg))
+    return Bvh8tCard(*(torch.from_numpy(a).to(device) for a in arrays))
 
 
 def _accel_tables(tri_arrays):

@@ -110,8 +110,8 @@ _RAYS = [_P] * 5 + [_P] * 3   # origin, direction, t_min, t_max, active;
 SIGNATURES = {
     "tpu_rt_bvh8t_walk": [_P, _P, _P, _P, *_RAYS, _I, _I, _I, _P],
     # nodes, children, tris, next_ray | n_rays, width, early_exit | stream
-    "tpu_rt_t8_brute": [_P, *_RAYS, _I, _I, _I, _P],
-    # tris | n_rays, n_tri_blocks, leaf_rows | stream
+    "tpu_rt_t8_brute": [_P, _P, *_RAYS, _I, _I, _P],
+    # card tris, card groups | n_rays, n_records | stream
     "tpu_rt_skip_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],
     # nodes_pk, tris_pk | n_rays, sentinel, n_tris, early_exit | stream
     "tpu_rt_pair_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],

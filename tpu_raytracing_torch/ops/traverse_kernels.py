@@ -161,20 +161,28 @@ def intersect_tris_brute_plain(ds: Accel, origin, direction, t_min,
 
 def intersect_tris_brute(ds: Accel, origin, direction, t_min, t_max,
                          active, early_exit: bool = False, counts=None):
-    """K3: the brute kernel on the card, its plain version on the CPU."""
+    """K3: the brute kernel on the card, its plain version on the CPU. The
+    kernel reads the rows of the card layout that hold a triangle
+    (`t8_card.tris`) and their groups (`t8_card.groups`)."""
     if not on_card("brute kernel", origin):
         return intersect_tris_brute_plain(ds, origin, direction, t_min, t_max,
                                           active, early_exit)
     B = origin.shape[0]
     if B == 0 or ds.meta.n_tris == 0:
         return no_hits(t_max, B)
-    lg = int(ds.meta.t8_leaf)
-    if ds.t8_tris.data_ptr() % 16:
-        raise ValueError("t8_tris: the brute kernel reads aligned float4s")
+    card = ds.t8_card
+    rows = card.tris.shape[0]
+    if card.groups.shape[0] != -(-rows // 4) * 4:
+        raise ValueError("t8_card.groups: expected the tris rows rounded up "
+                         f"to 4 entries, got {card.groups.shape[0]} for "
+                         f"{rows} rows")
+    if card.tris.data_ptr() % 16 or card.groups.data_ptr() % 16:
+        raise ValueError("t8_card: the brute kernel's bulk copies read "
+                         "16-byte-aligned tables")
     t, best = launch_ray_kernel(
-        "tpu_rt_t8_brute", [("t8_tris", ds.t8_tris, _F32)],
-        origin, direction, t_min, t_max, active,
-        [ds.t8_tris.shape[0] // lg, lg], counts)
+        "tpu_rt_t8_brute", [("t8_card.tris", card.tris, _F32),
+                            ("t8_card.groups", card.groups, torch.int32)],
+        origin, direction, t_min, t_max, active, [rows], counts)
     intersect_tris_brute.launches[_mode(early_exit)] += 1
     return t, best
 
