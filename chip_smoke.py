@@ -14,13 +14,17 @@ Phases (any failure exits nonzero and prints no result):
    the frame's shadow rays; the brute kernel also on rays at its
    prefilter's edges (`edge_rays`), on the bunny and on a mesh whose every
    hit is an equal-t tie (`repeated_triangles`), then with t_min or t_max
-   at each hit's t. At the path's shape (the frame's camera rays,
+   at each hit's t; the quad, quadrow and skip-link kernels also on rays
+   with zero direction components from node box planes (`axis_rays`), then
+   at their hits' t. The brute, quad, quadrow and skip-link kernels are
+   held bit for bit (`EXACT`). At the path's shape (the frame's camera rays,
    its shadow rays) each is timed (the wrapper by CUDA events) and its
    per-ray counters are read once, from which the card's bound for the same
-   work is computed. ptxas's registers, spills and stack frame of the bvh8t
-   walk's instantiations and of the brute kernel are printed beside the
-   card layout's sizes, and the brute kernel's times beside those before
-   its redesign (`BRUTE_BEFORE`);
+   work is computed. ptxas's registers, spills and stack frame of the bvh8t,
+   brute, quad and skip-link kernels' instantiations are printed beside the
+   card layout's sizes, the brute kernel's times beside those before its
+   redesign (`BRUTE_BEFORE`), and the bvh8t, quad, quadrow and skip-link
+   kernels' beside those of commit 6c8ef30 (`WALK_BEFORE`);
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel (launch counts reset
    just before, read just after). A copy of every ray batch the frame hands
@@ -140,6 +144,8 @@ KERNELS = (
 )
 # the walks of the kernel switch, in the order phase 3 holds them
 WALK_NAMES = ("bvh8t", "brute", "quad", "quadrow", "pair", "walk")
+# the walks on the persistent grid redesigned after bvh8t: K4 and K6
+PERSISTENT = ("quad", "quadrow", "walk")
 # each walk's CUDA kernel, as the profiler names it
 KERNEL_OF = {"bvh8t": "bvh8t_walk", "brute": "t8_brute", "quad": "quad_walk",
              "quadrow": "quad_walk", "pair": "pair_walk", "walk": "skip_walk"}
@@ -163,12 +169,20 @@ N_RANDOM_RAYS = 65536
 N_EDGE_RAYS = 16384  # rays at the brute kernel's prefilter edges (phase 3)
 # closest-hit: equal-t ties between different leaves may pick different
 # triangles (a kernel and its plain version may visit leaves in another
-# order); the brute kernel repeats its plain version's order bit for bit
-EXACT = ("brute",)
+# order); the brute, quad, quadrow and skip-link kernels repeat their plain
+# versions' order bit for bit
+EXACT = ("brute", "quad", "quadrow", "walk")
 # K3 before its redesign: the kernel of commit 70d5b21, wrapper ms at the
 # path's shape on an H100 80GB HBM3 at 700 W (PERF.md section 6, K3's row)
 BRUTE_BEFORE = dict(commit="70d5b21", ms=46.818, any_hit_ms=33.053,
                     card="NVIDIA H100 80GB HBM3, 700.00 W")
+# K4 and K6 before their redesign, and K1/K2 beside them: the kernels of
+# commit 6c8ef30, wrapper ms (closest-hit, any-hit) at the path's shape in
+# that commit's final chip_smoke.py run (PERF.md section 6)
+WALK_BEFORE = dict(commit="6c8ef30", card="NVIDIA H100 80GB HBM3, 700.00 W",
+                   ms={"bvh8t": (0.1102, 0.0897), "quad": (0.1302, 0.1408),
+                       "quadrow": (0.1314, 0.1436),
+                       "walk": (0.2308, 0.1344)})
 MAX_TIE_FRACTION = 1e-4
 T_RTOL = 1e-5
 # slice parity. Both devices draw the same random numbers and trace the
@@ -361,11 +375,18 @@ def ptxas_report(log: str, kernel: str) -> list:
             cur["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", ln)
             cur["smem"] = int(sm.group(1)) if sm else 0
-    for c in out:  # W and EARLY_EXIT from the mangled template arguments
-        m = re.search(r"ILi(\d+)ELb([01])E", c["entry"])
-        c["instance"] = (f"W={m.group(1)}, "
-                         f"{'any_hit' if m.group(2) == '1' else 'closest_hit'}"
-                         if m else c["entry"])
+    for c in out:  # the mangled template arguments: W, ROWREC, EARLY_EXIT
+        m = re.search(r"I((?:L[ib]\d+E)+)E", c["entry"])
+        if m is None:
+            c["instance"] = c["entry"]
+            continue
+        args = re.findall(r"L([ib])(\d+)E", m.group(1))
+        parts = [f"W={v}" for kind, v in args if kind == "i"]
+        flags = [v == "1" for kind, v in args if kind == "b"]
+        if len(flags) == 2:  # quad_walk<ROWREC, EARLY_EXIT>
+            parts.append("quadrow" if flags[0] else "quad")
+        parts.append("any_hit" if flags and flags[-1] else "closest_hit")
+        c["instance"] = ", ".join(parts)
     return out
 
 
@@ -465,6 +486,36 @@ def at_t_limits(args, t, best) -> list:
     return [o, d, torch.where(hit & (k == 0), t, t_min),
             torch.where(hit & (k == 1), t,
                         torch.where(hit & (k == 2), below, t_max)), active]
+
+
+def axis_rays(ds, n: int, seed: int) -> tuple:
+    """Rays with zero direction components, from inside the scene's node
+    boxes: each from a random point of a random box of bvh_nodes (the
+    skip-link walk's; the BVH4 records keep a subset of them), along an axis
+    (half the rays: one nonzero component) or a diagonal of two axes (the
+    other half), its coordinate on each zero axis snapped to that box's
+    min or max, so the slab test meets (box - o) * inf = 0 * inf = NaN
+    there. t_min 1e-4, t_max inf; every 7th lane inactive. Returns numpy
+    (o, d, t_min, t_max, active)."""
+    g = np.random.default_rng(seed)
+    nodes = ds.bvh_nodes_pk.cpu().numpy().reshape(-1, 8)[:int(
+        ds.meta.n_bvh_nodes)]
+    box = nodes[g.integers(0, nodes.shape[0], n)]
+    lo, hi = box[:, 0:3], box[:, 3:6]
+    o = (lo + g.uniform(0.0, 1.0, (n, 3)) * (hi - lo)).astype(np.float32)
+    axis = g.integers(0, 3, n)
+    two = np.arange(n) % 2 == 1  # a second nonzero axis
+    other = (axis + g.integers(1, 3, n)) % 3
+    nonzero = np.zeros((n, 3), bool)
+    nonzero[np.arange(n), axis] = True
+    nonzero[two, other[two]] = True
+    sign = g.choice(np.float32([-1.0, 1.0]), (n, 3))
+    size = np.where(two, np.float32(np.sqrt(0.5)), np.float32(1.0))
+    d = np.where(nonzero, sign * size[:, None], np.float32(0.0))
+    snap = np.where(g.integers(0, 2, (n, 3)) == 0, lo, hi)
+    o = np.where(nonzero, o, snap).astype(np.float32)
+    return (o, d.astype(np.float32), np.full(n, 1e-4, np.float32),
+            np.full(n, np.inf, np.float32), np.arange(n) % 7 != 3)
 
 
 def walks():
@@ -669,11 +720,11 @@ def phase_kernel(ds, settings, ptxas_log: str) -> dict:
     print(f"# bvh8t card layout: {card.nodes.shape[0]} node records, "
           f"{card.children.shape[0]} child records, {card.tris.shape[0]} "
           f"triangle rows", flush=True)
-    ptxas = {}
-    for walk in ("bvh8t", "brute"):
-        ptxas[walk] = ptxas_report(ptxas_log, KERNEL_OF[walk])
-        for r in ptxas[walk]:
-            print(f"# ptxas {KERNEL_OF[walk]} {r['instance']}: "
+    ptxas = {}  # kernel -> its instantiations' reports
+    for kernel in ("bvh8t_walk", "t8_brute", "quad_walk", "skip_walk"):
+        ptxas[kernel] = ptxas_report(ptxas_log, kernel)
+        for r in ptxas[kernel]:
+            print(f"# ptxas {kernel} {r['instance']}: "
                   f"{r.get('registers')} registers, {r.get('spill_stores')} / "
                   f"{r.get('spill_loads')} bytes spill stores / loads, "
                   f"{r.get('stack_frame')} bytes stack frame, {r.get('smem')} "
@@ -707,9 +758,38 @@ def phase_kernel(ds, settings, ptxas_log: str) -> dict:
             print(f"# brute {mode} on {name}, {label}: {report}: "
                   f"{'ok' if edge_ok else 'FAIL'}", flush=True)
             ok = ok and edge_ok
+    # K4 and K6 on axis rays (NaN slabs) and at their hits' t
+    for walk, mode in itertools.product(PERSISTENT, ("closest_hit",
+                                                     "any_hit")):
+        kernel, plain = walks()[walk]
+        ee = mode == "any_hit"
+        axis = [torch.from_numpy(x).to(ds.device)
+                for x in axis_rays(ds, N_EDGE_RAYS, 7)]
+        held = (axis, at_t_limits(axis, *plain(ds, *axis)))
+        for label, args in zip(("axis rays", "axis rays at their hits' t"),
+                               held):
+            tp, bp = plain(ds, *args, ee)
+            tk, bk = kernel(ds, *args, ee)
+            torch.cuda.synchronize()
+            hard_ok, _, report = compare(walk, mode, tk, bk, tp, bp)
+            print(f"# {walk} {mode}, {label}: {report}: "
+                  f"{'ok' if hard_ok else 'FAIL'}", flush=True)
+            ok = ok and hard_ok
+    for walk, mode in itertools.product(("bvh8t", *PERSISTENT),
+                                        ("closest_hit", "any_hit")):
+        st = stats[walk, mode]
+        if walk != "bvh8t":
+            st["ptxas"] = ptxas[KERNEL_OF[walk]]
+        was = WALK_BEFORE["ms"][walk][mode == "any_hit"]
+        print(f"# {walk} {mode}{' (redesigned)' if walk != 'bvh8t' else ''} "
+              f"at the path's shape: kernel {st['ms']:.4f} ms against {was} "
+              f"ms at {WALK_BEFORE['commit']} ({WALK_BEFORE['card']}, another "
+              f"call), {was / st['ms']:.2f}x; bound {st['bound_ms']:.4f} ms, "
+              f"{st['bound_ms'] / st['ms'] * 100:.2f}% of the kernel time",
+              flush=True)
     for mode in batches:
         st = stats["brute", mode]
-        st["ptxas"] = ptxas["brute"]
+        st["ptxas"] = ptxas["t8_brute"]
         was = BRUTE_BEFORE["ms" if mode == "closest_hit" else "any_hit_ms"]
         print(f"# brute {mode} (redesigned) at the path's shape: kernel "
               f"{st['ms']:.4f} ms against {was} ms before the redesign "
@@ -2250,6 +2330,8 @@ def kernel_entries(stats: dict, frame: dict, switch: dict,
         if walk == "brute":
             entry["redesigned"] = True
             entry["metal_frame"] = scenes["metal_brute"]
+        if walk in PERSISTENT:
+            entry["redesigned"] = True
         kernels.append(entry)
     for mode in ("closest_hit", "any_hit"):
         kernels.append(dict(

@@ -31,8 +31,8 @@ from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
 from chip_smoke import (
-    at_t_limits, bunnies_glb, edge_rays, emissive_box, repeated_triangles,
-    textured_cubes,
+    EXACT, PERSISTENT, at_t_limits, axis_rays, bunnies_glb, edge_rays,
+    emissive_box, repeated_triangles, textured_cubes,
 )
 
 pytestmark = pytest.mark.cuda
@@ -110,7 +110,7 @@ def test_kernel_vs_plain(cuda_scene, early_exit):
                          ids=["closest_hit", "any_hit"])
 @pytest.mark.parametrize("walk", list(WALKS))
 def test_walk_kernel_vs_plain(cuda_scene, walk, early_exit):
-    """K3-K6 on 16,384 random rays; the brute kernel bit for bit."""
+    """K3-K6 on 16,384 random rays; all but the pair walk bit for bit."""
     ds = cuda_scene
     kernel, plain = WALKS[walk]
     args = _rays(ds, 16384, 18, early_exit)
@@ -121,7 +121,7 @@ def test_walk_kernel_vs_plain(cuda_scene, walk, early_exit):
     tp, bp = plain(ds, *args, early_exit)
     torch.cuda.synchronize()
     _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit,
-                  exact=walk in ("brute", "quad", "quadrow"))
+                  exact=walk in EXACT)
 
 
 @pytest.mark.parametrize("early_exit", [False, True],
@@ -175,14 +175,15 @@ def brute_scenes(cuda_scene):
             "repeated": compile_scene(repeated_triangles(), "cuda")}
 
 
-def _brute_vs_plain(ds, args, early_exit):
-    """One launch of K3 against its plain version, bit for bit; returns
-    the plain (t, best)."""
+def _exact_vs_plain(ds, walk, args, early_exit):
+    """One launch of a K3, K4 or K6 kernel against its plain version, bit
+    for bit; returns the plain (t, best)."""
+    kernel, plain = WALKS[walk]
     reset_launch_counts()
-    tk, bk = TK.intersect_tris_brute(ds, *args, early_exit)
+    tk, bk = kernel(ds, *args, early_exit)
     mode = "any_hit" if early_exit else "closest_hit"
-    assert TK.intersect_tris_brute.launches[mode] == 1
-    tp, bp = TK.intersect_tris_brute_plain(ds, *args, early_exit)
+    assert kernel.launches[mode] == 1
+    tp, bp = plain(ds, *args, early_exit)
     torch.cuda.synchronize()
     _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit,
                   exact=True)
@@ -203,7 +204,7 @@ def test_brute_bit_for_bit(brute_scenes, scene, n, early_exit):
                            * float(ds.bounds_radius)).to(ds.device)
     args[3] = torch.where(torch.arange(n, device=ds.device) % 2 == 1, own,
                           args[3])
-    _, bp = _brute_vs_plain(ds, args, early_exit)
+    _, bp = _exact_vs_plain(ds, "brute", args, early_exit)
     if n > 1000:
         assert (bp >= 0).sum() > n // 4
 
@@ -219,9 +220,9 @@ def test_brute_edge_rays(brute_scenes, scene, early_exit):
     ds = brute_scenes[scene]
     args = [torch.from_numpy(x).to(ds.device)
             for x in edge_rays(ds, 16384, 50)]
-    tp, bp = _brute_vs_plain(ds, args, early_exit)
+    tp, bp = _exact_vs_plain(ds, "brute", args, early_exit)
     assert (bp >= 0).sum() > 4096
-    _brute_vs_plain(ds, at_t_limits(args, tp, bp), early_exit)
+    _exact_vs_plain(ds, "brute", at_t_limits(args, tp, bp), early_exit)
 
 
 def test_brute_repeats_bit_for_bit(cuda_scene):
@@ -235,6 +236,76 @@ def test_brute_repeats_bit_for_bit(cuda_scene):
     for tk, bk in runs:
         assert torch.equal(bk, bp)
         assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("n", [1, 127, 513, 16385])
+@pytest.mark.parametrize("walk", PERSISTENT)
+def test_persistent_walk_bit_for_bit(cuda_scene, walk, n, early_exit):
+    """K4 and K6 at ray counts that fill no whole warp, block or fetch
+    chunk, every 7th lane inactive and every other lane with its own
+    t_max."""
+    ds = cuda_scene
+    args = _rays(ds, n, 60 + n, early_exit)
+    g = np.random.default_rng(n)
+    own = torch.from_numpy(g.uniform(0.05, 2.0, n).astype(np.float32)
+                           * float(ds.bounds_radius)).to(ds.device)
+    args[3] = torch.where(torch.arange(n, device=ds.device) % 2 == 1, own,
+                          args[3])
+    _, bp = _exact_vs_plain(ds, walk, args, early_exit)
+    if n > 1000:
+        assert (bp >= 0).sum() > n // 4
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("walk", PERSISTENT)
+def test_persistent_walk_hard_rays(cuda_scene, walk, early_exit):
+    """K4 and K6 bit for bit on axis rays (zero direction components from
+    node box planes: NaN slabs; chip_smoke.py::axis_rays), then on the same
+    rays with t_min or t_max at each hit's t."""
+    ds = cuda_scene
+    args = [torch.from_numpy(x).to(ds.device)
+            for x in axis_rays(ds, 16384, 61)]
+    tp, bp = _exact_vs_plain(ds, walk, args, early_exit)
+    assert (bp >= 0).sum() > 4096
+    _exact_vs_plain(ds, walk, at_t_limits(args, tp, bp), early_exit)
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("walk", PERSISTENT)
+def test_persistent_walk_repeats_bit_for_bit(cuda_scene, walk, early_exit):
+    """Two launches on the same rays give the same bits and counters,
+    whichever warp the fetch counter hands each ray to."""
+    ds = cuda_scene
+    kernel, _ = WALKS[walk]
+    args = _rays(ds, 65536, 24, early_exit)
+    runs = []
+    for _ in range(2):
+        counts = torch.zeros((65536, 3), dtype=torch.int32, device=ds.device)
+        runs.append((*kernel(ds, *args, early_exit, counts=counts), counts))
+    torch.cuda.synchronize()
+    (t0, b0, c0), (t1, b1, c1) = runs
+    assert torch.equal(b0, b1) and torch.equal(c0, c1)
+    assert torch.equal(t0.view(torch.int32), t1.view(torch.int32))
+
+
+@pytest.mark.parametrize("walk", PERSISTENT)
+def test_misaligned_table_raises(cuda_scene, walk):
+    """The K4 and K6 kernels read 16-byte records: a table that starts off
+    a 16-byte boundary raises, with no fallback."""
+    ds = cuda_scene
+    name = {"quad": "bvh4_recs_pk", "quadrow": "bvh4_rows",
+            "walk": "bvh_nodes_pk"}[walk]
+    table = getattr(ds, name)
+    buf = torch.zeros(table.numel() + 1, dtype=table.dtype, device=ds.device)
+    shifted = buf[1:].view(table.shape)
+    shifted.copy_(table)
+    bad = dataclasses.replace(ds, **{name: shifted})
+    with pytest.raises(ValueError, match="16-byte"):
+        WALKS[walk][0](bad, *_rays(ds, 128, 25, False))
 
 
 def test_stack_caps_raise(cuda_scene):
@@ -570,7 +641,7 @@ def test_kernels_on_a_blas_vs_plain(bunnies, walk, early_exit):
     torch.cuda.synchronize()
     assert (bp >= 0).sum() > 1000
     _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit,
-                  exact=walk in ("brute", "quad", "quadrow"))
+                  exact=walk in EXACT)
 
 
 def test_instanced_frame_matches_baked(bunnies):

@@ -7,7 +7,9 @@ tests/test_pallas_traverse.py selects them. Their CUDA counterparts
 (csrc/*.cu) are held against the same plain versions on the card, in
 tests/test_torch_cuda.py. Winners must match exactly except for equal-t
 ties between leaves; t agrees within rtol 1e-5 (XLA contracts multiply-
-adds); any-hit bits must be equal.
+adds); any-hit bits must be equal. The walks whose kernels repeat their
+plain versions bit for bit (quad, quadrow, walk) are held on the rays where
+a kernel is most likely to slip too: at their hits' t and along axes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,8 @@ from tpu_raytracing_torch.ops import traverse_kernels as TK
 from tpu_raytracing_torch.ops.rng import SamplerConfig
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
+
+from chip_smoke import at_t_limits, axis_rays
 
 torch.set_num_threads(1)
 
@@ -105,6 +109,68 @@ def test_plain_vs_pallas_kernel(scenes, monkeypatch, walk, early_exit):
     assert ties.sum() <= 1
     hit = (p_k >= 0) & (bp >= 0)
     np.testing.assert_allclose(tp[hit], t_k[hit], rtol=1e-5)
+
+
+def _hard_rays(jds, tds, walk, kind):
+    """The ray sets where a walk is most likely to slip, as numpy (o, d,
+    t_min, t_max, active). "at_t_limits": _query's rays with t_min or t_max
+    at their closest hit's t (chip_smoke.py::at_t_limits: a third t_min = t,
+    a third t_max = t, a third t_max one float below), on the lanes where
+    the Pallas kernel and the plain version find the same triangle at the
+    same t bits (XLA contracts multiply-adds, so on the others the two t
+    differ in the last bits and a limit at one is not at the other).
+    "axis": chip_smoke.py::axis_rays, zero direction components from a
+    node box's plane (the NaN slab)."""
+    if kind == "axis":
+        return axis_rays(tds, 1024, 42)
+    base = _query(tds, 1024, 41, False)
+    t_k, p_k = intersect_tris_pallas(jds, *[jnp.asarray(x) for x in base])
+    t_k, p_k = np.asarray(t_k), np.asarray(p_k)
+    tp, bp = PLAINS[walk](tds, *[torch.from_numpy(x) for x in base])
+    tp, bp = tp.numpy(), bp.numpy()
+    same = (bp >= 0) & (p_k == bp) & (t_k.view(np.int32) == tp.view(np.int32))
+    assert same.sum() > 512
+    held = at_t_limits([torch.from_numpy(x) for x in base],
+                       torch.from_numpy(tp),
+                       torch.from_numpy(np.where(same, bp, -1)))
+    return tuple(x.numpy() for x in held)
+
+
+@pytest.mark.parametrize("kind", ["at_t_limits", "axis"])
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("walk", ["quad", "quadrow", "walk"])
+def test_plain_vs_pallas_kernel_hard_rays(scenes, monkeypatch, walk,
+                                          early_exit, kind):
+    """The plain versions that the K4 and K6 kernels repeat bit for bit,
+    against the Pallas kernel on rays at their hits' t (the <= rule of the
+    leaf update and t >= t_min) and on axis rays (NaN slabs). Any-hit bits
+    equal; closest-hit winners equal but for equal-t ties, t within rtol
+    1e-5. At the t limits no tie is allowed: one lane at most, as in
+    test_plain_vs_pallas_kernel. An axis ray from a snapped plane often runs
+    through a shared vertex or edge, so equal-t ties there are common, and
+    XLA's last-bit drift in t decides them: a tie is a different winner at
+    t within the rtol, and at most 2% of the hits may be one."""
+    name, env = CASES[walk]
+    jds, tds = scenes[name]
+    _set_switch(monkeypatch, env)
+    o, d, tmin, tmax, act = _hard_rays(jds, tds, walk, kind)
+    t_k, p_k = intersect_tris_pallas(
+        jds, *[jnp.asarray(x) for x in (o, d, tmin, tmax, act)],
+        early_exit=early_exit)
+    t_k, p_k = np.asarray(t_k), np.asarray(p_k)
+    tp, bp = PLAINS[walk](tds, *[torch.from_numpy(x)
+                                 for x in (o, d, tmin, tmax, act)], early_exit)
+    tp, bp = tp.numpy(), bp.numpy()
+    assert np.all(p_k[~act] == -1) and np.all(bp[~act] == -1)
+    assert (bp >= 0).sum() > 1024 // 4
+    np.testing.assert_array_equal(bp >= 0, p_k >= 0)
+    if early_exit:
+        return
+    hit = bp >= 0
+    np.testing.assert_allclose(tp[hit], t_k[hit], rtol=1e-5)
+    ties = (p_k != bp) & hit
+    assert ties.sum() <= (1 if kind == "at_t_limits" else 0.02 * hit.sum())
 
 
 @pytest.mark.parametrize("env,walk", [

@@ -38,8 +38,9 @@
 //   lanes are all idle takes the next 32 fetch positions from a global
 //   counter (atomicAdd on a scratch int the launch zeroes), which stand for
 //   kChunk consecutive rays from each of 32 / kChunk places spread over the
-//   batch (ray_at): a run of costly rays (neighbours on the screen) spreads
-//   over many warps instead of holding one warp for all of it;
+//   batch (traverse_common.cuh's RayFetch and ray_at, shared with K4 and
+//   K6): a run of costly rays (neighbours on the screen) spreads over many
+//   warps instead of holding one warp for all of it;
 // - the warp walks in lockstep, one node visit a lane a step; when at most
 //   kCoop lanes have leaf groups to test, the warp tests each group's rows
 //   together, a row a lane, and takes the least (t, id) across the warp;
@@ -62,36 +63,14 @@
 
 namespace {
 
+using tpu_rt::kFull;
 using tpu_rt::kStackCap;
 
 constexpr int kThreads = 512;  // threads a block
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 4;  // consecutive rays behind consecutive fetch positions
+constexpr int kRefill = 32;  // idle lanes a warp waits for before it fetches
 constexpr int kCoop = 4;   // lanes with leaf groups at or below which the warp
                            // tests each group's rows together
-
-// The lowest (t, id) across the warp, as the in-group tie rule orders them.
-__device__ __forceinline__ void warp_min(float* t, int* id) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ot = __shfl_xor_sync(kFull, *t, o);
-    const int oi = __shfl_xor_sync(kFull, *id, o);
-    if (ot < *t || (ot == *t && oi < *id)) {
-      *t = ot;
-      *id = oi;
-    }
-  }
-}
-
-// The ray behind fetch position k: positions go out in order, a warp's 32
-// at a time, and each 32 take kChunk consecutive rays from 32 / kChunk
-// places n_batches chunks apart, so that a run of costly rays spreads over
-// many warps. Returns -1 past the last ray.
-__device__ __forceinline__ int ray_at(int k, int n_batches, int n_rays) {
-  const int j = (k % 32) / kChunk;
-  const int r = ((k / 32) + j * n_batches) * kChunk + k % kChunk;
-  return r < n_rays ? r : -1;
-}
 
 template <int W, bool EARLY_EXIT>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -106,8 +85,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                int* __restrict__ best_out, int* __restrict__ counts,
                int n_rays) {
   const int lane = threadIdx.x & 31;
-  const int n_chunks = (n_rays + kChunk - 1) / kChunk;
-  const int n_batches = (n_chunks + 32 / kChunk - 1) / (32 / kChunk);
+  tpu_rt::RayFetch<kChunk> fetch(n_rays);
   // this lane's ray (-1: idle) and its walk: the stack's top entry (base
   // node, pending slots) in registers, the entries below it in local memory
   int i = -1;
@@ -117,17 +95,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t stack[kStackCap];
   int sp = 0, cur_base = 0;
   uint32_t cur_mask = 0;
-  bool open = true;  // warp-uniform: the counter may still hand out rays
 
   for (;;) {
     // a warp whose lanes are all idle takes the next 32 fetch positions
-    if (open && __ballot_sync(kFull, i < 0) == kFull) {
-      int base = 0;
-      if (lane == 0) base = atomicAdd(next_ray, 32);
-      base = __shfl_sync(kFull, base, 0);
-      if (base + 32 >= 32 * n_batches) open = false;
-      const int r =
-          base < 32 * n_batches ? ray_at(base + lane, n_batches, n_rays) : -1;
+    if (fetch.open) {
+      const int r = fetch.next(next_ray, lane, i < 0, kRefill);
       if (r >= 0) {
         t_best = t_max_in[r];
         best = -1;
@@ -146,7 +118,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     if (__ballot_sync(kFull, i >= 0) == 0) {
-      if (open) continue;
+      if (fetch.open) continue;
       break;
     }
 
@@ -231,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               id = __float_as_int(c2.y);
             }
           }
-          warp_min(&t, &id);
+          tpu_rt::warp_min(&t, &id);
           if (t < INFINITY) {
             tb = t;
             bb = id;
@@ -328,34 +300,14 @@ struct Args {
   int n_rays;
 };
 
-// The persistent launch of one instantiation: SMs x the blocks that fit on
-// one SM, no more than the batch needs, behind a memset of the ray counter.
+// The persistent launch of one instantiation.
 template <int W, bool EARLY_EXIT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto* kernel = bvh8t_walk<W, EARLY_EXIT>;
-  // the SMs and the blocks one holds, asked again only when the device
-  // changes, not at every launch (a host cost)
-  static int known_dev = -1, sms = 0, per_sm = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev != known_dev) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, 0);
-    }
-    if (err != cudaSuccess) return err;
-    known_dev = dev;
-  }
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = min(sms * per_sm, (a.n_rays + kThreads - 1) / kThreads);
-  err = cudaMemsetAsync(a.next_ray, 0, sizeof(int), stream);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, 0, stream>>>(
-      a.nodes, a.children, a.tris, a.next_ray, a.origin, a.direction, a.t_min,
-      a.t_max, a.active, a.t_out, a.best_out, a.counts, a.n_rays);
-  return cudaGetLastError();
+  static tpu_rt::GridCache cache;
+  return tpu_rt::persistent_launch(
+      bvh8t_walk<W, EARLY_EXIT>, kThreads, a.n_rays, &cache, a.next_ray,
+      stream, a.nodes, a.children, a.tris, a.next_ray, a.origin, a.direction,
+      a.t_min, a.t_max, a.active, a.t_out, a.best_out, a.counts, a.n_rays);
 }
 
 template <int W>

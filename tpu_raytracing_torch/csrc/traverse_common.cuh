@@ -14,6 +14,13 @@
 // count the work the query needs: tests of real triangles and boxes of real
 // children, not the zero rows that pad a bvh8t group or the empty slots of
 // a node. chip_smoke.py computes the card's bound for a launch from them.
+//
+// The persistent grid of the stack walks K1/K2 (bvh8t_walk.cu) and K4
+// (quad_walk.cu) and of the skip-link walk K6 (skip_walk.cu) is here too:
+// the ray fetch (`RayFetch`, `ray_at`), the launch (`persistent_launch`)
+// and the cross-lane minimum (`warp_min`); so is the leaf phase that K4 and
+// K6 share (`test_leaves`), which tests a sparse warp's leaves across its
+// lanes.
 
 #pragma once
 
@@ -25,6 +32,9 @@ namespace tpu_rt {
 constexpr int kStackCap = 64;  // traverse_pallas.py STACK_CAP; wrappers check the bound
 constexpr int kRow = 128;      // f32 lanes per packed table row
 constexpr float kBaryEps = 1e-5f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kCoop = 4;  // lanes with leaves at or below which test_leaves
+                          // tests them across the warp, a leaf an 8 lanes
 
 // min / max that propagate NaN as jnp.minimum / torch.minimum do (fminf
 // would drop it): a ray lying in a slab plane with a zero direction
@@ -35,6 +45,34 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// The same two as one instruction each: PTX min.NaN / max.NaN (sm_80 on)
+// give NaN where either operand is, and min / max otherwise. Their NaN has
+// another payload than the two above, which no walk reads: a slab's NaN only
+// fails the comparisons of slab_hit.
+template <bool PTX_NAN>
+__device__ __forceinline__ float slab_min(float a, float b) {
+#ifdef __CUDA_ARCH__
+  if (PTX_NAN) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+  }
+#endif
+  return nan_min(a, b);
+}
+
+template <bool PTX_NAN>
+__device__ __forceinline__ float slab_max(float a, float b) {
+#ifdef __CUDA_ARCH__
+  if (PTX_NAN) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+  }
+#endif
+  return nan_max(a, b);
 }
 
 struct Ray {
@@ -62,19 +100,22 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
 }
 
 // Slab test of the box (min3, max3) at `box`: hit iff t0 <= t1,
-// t1 >= t_min and t0 <= t_best. Writes the entry distance t0.
+// t1 >= t_min and t0 <= t_best. Writes the entry distance t0 (a NaN's
+// payload depends on PTX_NAN). K4 and K6 take PTX_NAN = true (measured
+// faster on the H100, PERF.md); K1/K2 and K5 keep the select form.
+template <bool PTX_NAN = false>
 __device__ __forceinline__ bool slab_hit(const Ray& r, const float* box,
                                          float t_best, float* t_entry) {
   const float ax = (box[0] - r.ox) * r.ix, bx = (box[3] - r.ox) * r.ix;
   const float ay = (box[1] - r.oy) * r.iy, by = (box[4] - r.oy) * r.iy;
   const float az = (box[2] - r.oz) * r.iz, bz = (box[5] - r.oz) * r.iz;
   float t0 = -INFINITY, t1 = INFINITY;
-  t0 = nan_max(t0, nan_min(ax, bx));
-  t1 = nan_min(t1, nan_max(ax, bx));
-  t0 = nan_max(t0, nan_min(ay, by));
-  t1 = nan_min(t1, nan_max(ay, by));
-  t0 = nan_max(t0, nan_min(az, bz));
-  t1 = nan_min(t1, nan_max(az, bz));
+  t0 = slab_max<PTX_NAN>(t0, slab_min<PTX_NAN>(ax, bx));
+  t1 = slab_min<PTX_NAN>(t1, slab_max<PTX_NAN>(ax, bx));
+  t0 = slab_max<PTX_NAN>(t0, slab_min<PTX_NAN>(ay, by));
+  t1 = slab_min<PTX_NAN>(t1, slab_max<PTX_NAN>(ay, by));
+  t0 = slab_max<PTX_NAN>(t0, slab_min<PTX_NAN>(az, bz));
+  t1 = slab_min<PTX_NAN>(t1, slab_max<PTX_NAN>(az, bz));
   *t_entry = t0;
   return t0 <= t1 && t1 >= r.t_min && t0 <= t_best;
 }
@@ -145,6 +186,262 @@ __device__ __forceinline__ void store_counts(int* __restrict__ counts, int i,
     counts[3 * i] = visits;
     counts[3 * i + 1] = boxes;
     counts[3 * i + 2] = tests;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The persistent grid: SMs x the blocks that fit on one SM. Once a
+// kernel's refill threshold of a warp's lanes are idle (all 32 in K1), the
+// idle lanes take the next fetch positions from a counter in device memory
+// that the launch zeroes (atomicAdd on a scratch int the wrapper
+// allocates); a run of costly rays then holds no launch open after the
+// others are done.
+
+// The ray behind fetch position k: positions go out in order, and each
+// aligned 32 of them take CHUNK consecutive rays from 32 / CHUNK places
+// n_batches chunks apart (CHUNK = 32: the next 32 rays). Returns -1 past
+// the last ray.
+template <int CHUNK>
+__device__ __forceinline__ int ray_at(int k, int n_batches, int n_rays) {
+  static_assert(32 % CHUNK == 0, "a warp's 32 positions take whole chunks");
+  const int j = (k % 32) / CHUNK;
+  const int r = ((k / 32) + j * n_batches) * CHUNK + k % CHUNK;
+  return r < n_rays ? r : -1;
+}
+
+// One warp's side of the fetch. `open` is warp-uniform: false once the
+// counter has handed out every ray.
+template <int CHUNK>
+struct RayFetch {
+  int n_rays, n_batches;
+  bool open;
+
+  __device__ explicit RayFetch(int n) : n_rays(n), open(true) {
+    const int n_chunks = (n + CHUNK - 1) / CHUNK;
+    n_batches = (n_chunks + 32 / CHUNK - 1) / (32 / CHUNK);
+  }
+
+  // Called by every lane of the warp when at least `refill` of its lanes
+  // are idle (32: all of them): the idle lanes take the next fetch
+  // positions in lane order. This lane's next ray, or -1 (busy or none
+  // left).
+  __device__ int next(int* __restrict__ counter, int lane, bool idle,
+                      int refill) {
+    const unsigned idle_mask = __ballot_sync(kFull, idle);
+    const int n_idle = __popc(idle_mask);
+    if (!open || n_idle < refill) return -1;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, n_idle);
+    base = __shfl_sync(kFull, base, 0);
+    if (base + n_idle >= 32 * n_batches) open = false;
+    const int k = base + __popc(idle_mask & ((1u << lane) - 1u));
+    return idle && k < 32 * n_batches ? ray_at<CHUNK>(k, n_batches, n_rays)
+                                      : -1;
+  }
+};
+
+// The lowest (t, key) across each aligned group of WIDTH lanes (the whole
+// warp by default): the least t, and of equal t the least key.
+template <int WIDTH = 32>
+__device__ __forceinline__ void warp_min(float* t, int* key) {
+#pragma unroll
+  for (int o = WIDTH / 2; o > 0; o >>= 1) {
+    const float ot = __shfl_xor_sync(kFull, *t, o);
+    const int ok = __shfl_xor_sync(kFull, *key, o);
+    if (ot < *t || (ot == *t && ok < *key)) {
+      *t = ot;
+      *key = ok;
+    }
+  }
+}
+
+// The SMs and the blocks of one kernel that fit on one, asked again only
+// when the device changes, not at every launch (a host cost): one a
+// kernel instantiation.
+struct GridCache {
+  int dev = -1, sms = 0, per_sm = 0;
+};
+
+// Launch `kernel` at `threads` a block on a persistent grid, SMs x the
+// blocks one SM holds (no more than n_rays need), behind a memset of its
+// fetch counter; `cache` is the instantiation's.
+template <typename Kernel, typename... Args>
+inline cudaError_t persistent_launch(Kernel kernel, int threads, int n_rays,
+                                     GridCache* cache, int* counter,
+                                     cudaStream_t stream, Args... args) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != cache->dev) {
+    err = cudaDeviceGetAttribute(&cache->sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cache->per_sm,
+                                                          kernel, threads, 0);
+    }
+    if (err != cudaSuccess) return err;
+    cache->dev = dev;
+  }
+  if (cache->per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid =
+      min(cache->sms * cache->per_sm, (n_rays + threads - 1) / threads);
+  err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, 0, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Leaves of the quad and skip-link tables, read as 16-byte records.
+
+// p0 p1 p2 of a triangle record (and, in a tri_rows slot, the id's bits at
+// word 9, c.y): three 16-byte loads.
+struct TriRec {
+  float4 a, b, c;
+};
+
+__device__ __forceinline__ TriRec load_tri(const float4* __restrict__ p) {
+  return TriRec{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
+
+// tri_hit_verts on a TriRec: the same operations on the same words.
+__device__ __forceinline__ bool tri_hit_rec(const Ray& r, const TriRec& q,
+                                            float t_best, float* t_out) {
+  const float p0x = q.a.x, p0y = q.a.y, p0z = q.a.z;
+  return tri_hit(r, p0x, p0y, p0z, q.a.w - p0x, q.b.x - p0y, q.b.y - p0z,
+                 q.b.z - p0x, q.b.w - p0y, q.c.x - p0z, t_best, t_out);
+}
+
+// Record k of the leaf at `first`: a packed triangle (tri_pack_pk, 16 f32
+// a triangle, clamped to the last one as packed_leaf does) or slot k of
+// row `first` of tri_rows (ROWREC).
+template <bool ROWREC>
+__device__ __forceinline__ const float4* leaf_tri(
+    const float4* __restrict__ tris, int first, int k, int n_tris) {
+  return ROWREC ? tris + static_cast<size_t>(first) * (kRow / 4) + 4 * k
+                : tris + static_cast<size_t>(min(first + k, n_tris - 1)) * 4;
+}
+
+// The winner that record k of the leaf at `first` stands for.
+template <bool ROWREC>
+__device__ __forceinline__ int leaf_id(int first, int k, const TriRec& q) {
+  return ROWREC ? __float_as_int(q.c.y) : first + k;
+}
+
+// Up to N metas of a lane's visit in order: its hit leaves ((first << 3) |
+// count, in the order they are tested) or its hit internal children.
+// `meta` is indexed with constants only, so it stays in registers.
+template <int N>
+struct Pending {
+  int meta[N];
+  int n;
+};
+
+template <int N>
+__device__ __forceinline__ void append(Pending<N>* p, int meta) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (p->n == j) p->meta[j] = meta;
+  }
+  ++p->n;
+}
+
+// The leaf phase of one visit of every lane of the warp (all lanes call
+// it): each lane's pending leaves in order, the first minimum inside a
+// leaf, then a <= update of t_best, as packed_leaf does. When at most kCoop
+// lanes have leaves, the warp tests them together: the j-th leaves of up to
+// four lanes at once, a leaf an 8 lanes and a record a lane, each against
+// its lane's t_best from before the visit's first leaf, and an 8-lane
+// minimum of (t, k). Folding a lane's leaves with t <= the fold's t gives
+// what the leaf-by-leaf updates give: a record that passes against a later,
+// lower t_best passes against the earlier one, and the least t of all the
+// visit's leaves passes every update from its leaf on, so the last leaf
+// that holds it wins, at its first record with that t. Otherwise each lane
+// tests its own leaves a record at a time, the next record's loads issued
+// before the current record's test.
+template <bool ROWREC, int N>
+__device__ __forceinline__ void test_leaves(const Ray& ray,
+                                            const float4* __restrict__ tris,
+                                            const Pending<N>& p, int n_tris,
+                                            float* t_best, int* best,
+                                            int* n_tests) {
+  const unsigned leafy = __ballot_sync(kFull, p.n > 0);
+  if (leafy == 0) return;
+  const int lane = threadIdx.x & 31;
+  if (__popc(leafy) <= kCoop) {
+    const int g = lane >> 3, k = lane & 7;
+    float fold_t = INFINITY;
+    int fold_id = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const unsigned mask = __ballot_sync(kFull, p.n > j);
+      if (mask == 0) break;
+      unsigned m = mask;  // group g takes the g-th lane of the mask
+      for (int x = 0; x < g; ++x) m &= m - 1;
+      const int src = m != 0 ? __ffs(m) - 1 : 0;
+      Ray rs{};
+      rs.ox = __shfl_sync(kFull, ray.ox, src);
+      rs.oy = __shfl_sync(kFull, ray.oy, src);
+      rs.oz = __shfl_sync(kFull, ray.oz, src);
+      rs.dx = __shfl_sync(kFull, ray.dx, src);
+      rs.dy = __shfl_sync(kFull, ray.dy, src);
+      rs.dz = __shfl_sync(kFull, ray.dz, src);
+      rs.t_min = __shfl_sync(kFull, ray.t_min, src);
+      const float tb = __shfl_sync(kFull, *t_best, src);
+      const int meta = __shfl_sync(kFull, p.n > j ? p.meta[j] : 0, src);
+      const int first = meta >> 3, count = meta & 7;
+      float t = INFINITY;
+      int kk = k, id = 0;
+      if (m != 0 && k < count) {
+        const TriRec q = load_tri(leaf_tri<ROWREC>(tris, first, k, n_tris));
+        float th;
+        if (tri_hit_rec(rs, q, tb, &th)) t = th;
+        id = leaf_id<ROWREC>(first, k, q);
+      }
+      warp_min<8>(&t, &kk);  // the group's first minimum, and its winner
+      id = __shfl_sync(kFull, id, (lane & ~7) | kk);
+      // a lane with a j-th leaf reads its group's minimum
+      const int from = (8 * __popc(mask & ((1u << lane) - 1u))) & 31;
+      const float gt = __shfl_sync(kFull, t, from);
+      const int gid = __shfl_sync(kFull, id, from);
+      if (p.n > j) {
+        *n_tests += p.meta[j] & 7;
+        if (gt < INFINITY && gt <= fold_t) {
+          fold_t = gt;
+          fold_id = gid;
+        }
+      }
+    }
+    if (fold_t < INFINITY) {
+      *t_best = fold_t;
+      *best = fold_id;
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (j >= p.n) break;
+    const int first = p.meta[j] >> 3, count = p.meta[j] & 7;
+    float cur_t = INFINITY;
+    int cur_id = 0;
+    TriRec q = load_tri(leaf_tri<ROWREC>(tris, first, 0, n_tris));
+    for (int k = 0; k < count; ++k) {
+      TriRec nq = q;
+      if (k + 1 < count) {
+        nq = load_tri(leaf_tri<ROWREC>(tris, first, k + 1, n_tris));
+      }
+      float t;
+      if (tri_hit_rec(ray, q, *t_best, &t) && t < cur_t) {
+        cur_t = t;
+        cur_id = leaf_id<ROWREC>(first, k, q);
+      }
+      q = nq;
+    }
+    *n_tests += count;
+    if (cur_t < INFINITY) {
+      *t_best = cur_t;
+      *best = cur_id;
+    }
   }
 }
 

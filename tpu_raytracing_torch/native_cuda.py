@@ -112,12 +112,14 @@ SIGNATURES = {
     # nodes, children, tris, next_ray | n_rays, width, early_exit | stream
     "tpu_rt_t8_brute": [_P, _P, *_RAYS, _I, _I, _P],
     # card tris, card groups | n_rays, n_records | stream
-    "tpu_rt_skip_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],
-    # nodes_pk, tris_pk | n_rays, sentinel, n_tris, early_exit | stream
+    "tpu_rt_skip_walk": [_P, _P, _P, *_RAYS, _I, _I, _I, _I, _P],
+    # nodes_pk, tris_pk, next_ray | n_rays, sentinel, n_tris, early_exit |
+    # stream
     "tpu_rt_pair_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],
     # rows_pk, tris_pk | n_rays, root_meta, n_tris, early_exit | stream
-    "tpu_rt_quad_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _I, _P],
-    # recs, tris | n_rays, root_meta, n_tris, rowrec, early_exit | stream
+    "tpu_rt_quad_walk": [_P, _P, _P, *_RAYS, _I, _I, _I, _I, _I, _P],
+    # recs, tris, next_ray | n_rays, root_meta, n_tris, rowrec, early_exit |
+    # stream
     "tpu_rt_probe_iter_cost": [_P] * 6 + [_I] * 4 + [_P],
     # tris, o, d, t_min, out, iters_run | R, chain, loop, iters | stream
     "tpu_rt_probe_bf16_vpu": [_P] * 3 + [_I] * 2 + [_P],

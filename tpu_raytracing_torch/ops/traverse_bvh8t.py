@@ -23,8 +23,8 @@ import torch
 from ..device.scene_buffers import Accel
 from .intersect import ray_aabb
 from .walk_common import (
-    DONE, STACK_CAP, launch_ray_kernel, leaf_first_min, leaf_records, no_hits,
-    pop,
+    DONE, STACK_CAP, check_aligned, launch_ray_kernel, leaf_first_min,
+    leaf_records, no_hits, pop, ray_counter,
 )
 
 
@@ -134,14 +134,9 @@ def intersect_tris_bvh8t(ds: Accel, origin, direction, t_min, t_max,
     tables = [("t8_card.nodes", card.nodes, torch.int32),
               ("t8_card.children", card.children, torch.float32),
               ("t8_card.tris", card.tris, torch.float32)]
-    for name, x, _ in tables:
-        if x.data_ptr() % 16 or not x.is_contiguous():
-            raise ValueError(f"{name}: the kernel reads aligned 16-byte "
-                             "records of a contiguous tensor")
-    next_ray = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed there
+    check_aligned(tables)
     t, best = launch_ray_kernel(
-        "tpu_rt_bvh8t_walk",
-        [*tables, ("next_ray", next_ray, torch.int32)],
+        "tpu_rt_bvh8t_walk", [*tables, ray_counter(dev)],
         origin, direction, t_min, t_max, active,
         [int(ds.meta.t8_width), int(early_exit)],
         counts)

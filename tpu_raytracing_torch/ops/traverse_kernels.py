@@ -19,17 +19,20 @@ the hit distance (t_max where there is none) and best the winning triangle
 in BVH order (-1 where there is none); inactive lanes return (t_max, -1).
 On a CUDA tensor it launches its kernel (csrc/*.cu) and adds one to
 `wrapper.launches[mode]`, or raises; a stack bound above the kernel's cap
-raises too (the JAX package degrades to its XLA walk there instead). On a
-CPU tensor it runs its plain version:
+raises too (the JAX package degrades to its XLA walk there instead), and so
+does a table that the quad or skip-link kernel cannot read with 16-byte
+loads. On a CPU tensor it runs its plain version:
 
 - brute: `intersect_tris_brute_plain`, dense over the t8 groups, bit-equal
   to the kernel;
 - walk: `intersect_tris_skiplink_plain`, a port of ops/traverse.py::
-  _intersect_skiplink over the records of bvh_nodes_pk + tri_pack;
+  _intersect_skiplink over the records of bvh_nodes_pk + tri_pack,
+  bit-equal to the kernel;
 - pair: `intersect_tris_plain` (ops/traverse_bvh8t.py), the XLA stack walk
   over the child-pair rows that bvh2_rows_pk packs;
 - quad / quadrow: `intersect_tris_quad_plain`, a per-lane BVH4 walk over the
-  tables the kernel reads, in the kernel's child order.
+  tables the kernel reads, in the kernel's child order, bit-equal to the
+  kernel.
 
 Walks that order children differently reach the same leaves, so their
 winners agree except on equal-t ties between leaves.
@@ -52,8 +55,8 @@ from ..native_cuda import on_card
 from .intersect import ray_aabb, ray_triangle_edges
 from .traverse_bvh8t import intersect_tris_bvh8t, intersect_tris_plain
 from .walk_common import (
-    DONE, STACK_CAP, launch_ray_kernel, leaf_first_min, leaf_records, no_hits,
-    pop,
+    DONE, STACK_CAP, check_aligned, launch_ray_kernel, leaf_first_min,
+    leaf_records, no_hits, pop, ray_counter,
 )
 
 G8_PER_BLOCK = 12  # bvh8t tri groups per triangle block (10 columns each)
@@ -244,10 +247,11 @@ def intersect_tris_skiplink(ds: Accel, origin, direction, t_min, t_max,
     B = origin.shape[0]
     if B == 0 or ds.meta.n_tris == 0:
         return no_hits(t_max, B)
+    tables = [("bvh_nodes_pk", ds.bvh_nodes_pk, _F32),
+              ("tri_pack_pk", ds.tri_pack_pk, _F32)]
+    check_aligned(tables)
     t, best = launch_ray_kernel(
-        "tpu_rt_skip_walk",
-        [("bvh_nodes_pk", ds.bvh_nodes_pk, _F32),
-         ("tri_pack_pk", ds.tri_pack_pk, _F32)],
+        "tpu_rt_skip_walk", [*tables, ray_counter(origin.device)],
         origin, direction, t_min, t_max, active,
         [int(ds.meta.n_bvh_nodes), int(ds.meta.n_tris), int(early_exit)],
         counts)
@@ -424,9 +428,10 @@ def _quad(wrapper, rowrec: bool, ds: Accel, origin, direction, t_min,
     recs, tris = ((ds.bvh4_rows, ds.tri_rows) if rowrec
                   else (ds.bvh4_recs_pk, ds.tri_pack_pk))
     _, _, root = _quad_tables(ds, rowrec)
+    tables = [("bvh4 records", recs, _F32), ("bvh4 leaves", tris, _F32)]
+    check_aligned(tables)
     t, best = launch_ray_kernel(
-        "tpu_rt_quad_walk", [("bvh4 records", recs, _F32),
-                             ("bvh4 leaves", tris, _F32)],
+        "tpu_rt_quad_walk", [*tables, ray_counter(origin.device)],
         origin, direction, t_min, t_max, active,
         [root, int(ds.meta.n_tris), int(rowrec), int(early_exit)], counts)
     wrapper.launches[_mode(early_exit)] += 1

@@ -1,7 +1,9 @@
 """What every triangle walk shares: the kernel launch and the plain leaf phase.
 
 - `launch_ray_kernel` checks a ray batch on the card and launches one C
-  entry of native_cuda (csrc/*.cu) on the current stream.
+  entry of native_cuda (csrc/*.cu) on the current stream; `check_aligned`
+  and `ray_counter` serve the walks that read 16-byte records on a
+  persistent grid (bvh8t, quad, skip-link).
 - `no_hits` is the answer of an empty batch or scene.
 - `leaf_records`, `leaf_first_min` and `pop` are the pieces of the plain
   PyTorch walks: a leaf's triangle records, its first-minimum hit, and a
@@ -60,6 +62,22 @@ def no_hits(t_max, B: int):
     """(t_max, -1) for every ray: an empty batch or scene."""
     return (t_max.to(torch.float32).expand(B).clone(),
             torch.full((B,), -1, dtype=torch.int32, device=t_max.device))
+
+
+def check_aligned(tables) -> None:
+    """Raise unless every (name, tensor, dtype) table is contiguous and
+    16-byte aligned: the kernels read its records with 16-byte loads."""
+    for name, x, _ in tables:
+        if x.data_ptr() % 16 or not x.is_contiguous():
+            raise ValueError(f"{name}: the kernel reads aligned 16-byte "
+                             "records of a contiguous tensor")
+
+
+def ray_counter(dev):
+    """The fetch counter of a persistent walk (the launch zeroes it), as
+    the table the kernel takes after its scene tables."""
+    return ("next_ray", torch.empty(1, dtype=torch.int32, device=dev),
+            torch.int32)
 
 
 def launch_ray_kernel(entry: str, tables, origin, direction, t_min, t_max,
