@@ -14,17 +14,22 @@ Phases (any failure exits nonzero and prints no result):
    the frame's shadow rays; the brute kernel also on rays at its
    prefilter's edges (`edge_rays`), on the bunny and on a mesh whose every
    hit is an equal-t tie (`repeated_triangles`), then with t_min or t_max
-   at each hit's t; the quad, quadrow and skip-link kernels also on rays
-   with zero direction components from node box planes (`axis_rays`), then
-   at their hits' t. The brute, quad, quadrow and skip-link kernels are
-   held bit for bit (`EXACT`). At the path's shape (the frame's camera rays,
-   its shadow rays) each is timed (the wrapper by CUDA events) and its
-   per-ray counters are read once, from which the card's bound for the same
-   work is computed. ptxas's registers, spills and stack frame of the bvh8t,
-   brute, quad and skip-link kernels' instantiations are printed beside the
-   card layout's sizes, the brute kernel's times beside those before its
-   redesign (`BRUTE_BEFORE`), and the bvh8t, quad, quadrow and skip-link
-   kernels' beside those of commit 6c8ef30 (`WALK_BEFORE`);
+   at each hit's t; the quad, quadrow, pair, skip-link and bvh8t kernels
+   also on rays with zero direction components from node box planes
+   (`axis_rays`), then at their hits' t. The brute, quad, quadrow, pair and
+   skip-link kernels are held bit for bit (`EXACT`); the bvh8t kernel, whose
+   plain version walks another tree, on axis rays by the traversal
+   contract with ties as common as on the CPU (`AXIS_TIE_SHARE`), where
+   each lane outside it must be fault F3, a hit in a box that one tree's
+   box test culls and the brute force finds (`compare_trees`). At the
+   path's shape (the frame's camera rays, its shadow rays) each is timed
+   (the wrapper by CUDA events) and its per-ray counters are read once,
+   from which the card's bound for the same work is computed. ptxas's
+   registers, spills and stack frame of the bvh8t, brute, quad, pair and
+   skip-link kernels' instantiations are printed beside the card layout's
+   sizes, the brute kernel's times beside those before its redesign
+   (`BRUTE_BEFORE`), and the bvh8t, quad, quadrow, pair and skip-link
+   kernels' beside those of commit 5695c8b (`WALK_BEFORE`);
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel (launch counts reset
    just before, read just after). A copy of every ray batch the frame hands
@@ -144,8 +149,8 @@ KERNELS = (
 )
 # the walks of the kernel switch, in the order phase 3 holds them
 WALK_NAMES = ("bvh8t", "brute", "quad", "quadrow", "pair", "walk")
-# the walks on the persistent grid redesigned after bvh8t: K4 and K6
-PERSISTENT = ("quad", "quadrow", "walk")
+# the walks on the persistent grid redesigned after bvh8t: K4, K5 and K6
+PERSISTENT = ("quad", "quadrow", "pair", "walk")
 # each walk's CUDA kernel, as the profiler names it
 KERNEL_OF = {"bvh8t": "bvh8t_walk", "brute": "t8_brute", "quad": "quad_walk",
              "quadrow": "quad_walk", "pair": "pair_walk", "walk": "skip_walk"}
@@ -169,21 +174,27 @@ N_RANDOM_RAYS = 65536
 N_EDGE_RAYS = 16384  # rays at the brute kernel's prefilter edges (phase 3)
 # closest-hit: equal-t ties between different leaves may pick different
 # triangles (a kernel and its plain version may visit leaves in another
-# order); the brute, quad, quadrow and skip-link kernels repeat their plain
-# versions' order bit for bit
-EXACT = ("brute", "quad", "quadrow", "walk")
+# order); the brute, quad, quadrow, pair and skip-link kernels repeat their
+# plain versions' order bit for bit
+EXACT = ("brute", "quad", "quadrow", "pair", "walk")
 # K3 before its redesign: the kernel of commit 70d5b21, wrapper ms at the
 # path's shape on an H100 80GB HBM3 at 700 W (PERF.md section 6, K3's row)
 BRUTE_BEFORE = dict(commit="70d5b21", ms=46.818, any_hit_ms=33.053,
                     card="NVIDIA H100 80GB HBM3, 700.00 W")
-# K4 and K6 before their redesign, and K1/K2 beside them: the kernels of
-# commit 6c8ef30, wrapper ms (closest-hit, any-hit) at the path's shape in
-# that commit's final chip_smoke.py run (PERF.md section 6)
-WALK_BEFORE = dict(commit="6c8ef30", card="NVIDIA H100 80GB HBM3, 700.00 W",
-                   ms={"bvh8t": (0.1102, 0.0897), "quad": (0.1302, 0.1408),
-                       "quadrow": (0.1314, 0.1436),
-                       "walk": (0.2308, 0.1344)})
+# The walks of commit 5695c8b (K5 before its redesign), wrapper ms
+# (closest-hit, any-hit) at the path's shape in that commit's final run
+# (PERF.md section 6): K4, K5 and K6 from phase 3 of chip_smoke.py, K1/K2
+# from scripts/torch_walk_ab.py in the same call
+WALK_BEFORE = dict(commit="5695c8b", card="NVIDIA H100 80GB HBM3, 700.00 W",
+                   ms={"bvh8t": (0.1098, 0.0905), "quad": (0.0893, 0.0876),
+                       "quadrow": (0.0917, 0.0892), "pair": (0.1125, 0.1117),
+                       "walk": (0.1277, 0.1012)})
 MAX_TIE_FRACTION = 1e-4
+# axis rays from snapped box planes often run through a shared vertex or
+# edge, where two walks that order leaves differently may pick different
+# triangles at t within T_RTOL (tests/test_torch_walks.py's axis cases):
+# a share of the live rays, which t limits at the hits do not change
+AXIS_TIE_SHARE = 0.02
 T_RTOL = 1e-5
 # slice parity. Both devices draw the same random numbers and trace the
 # same camera rays bit for bit; they differ in the last bits of sin, cos,
@@ -475,6 +486,19 @@ def edge_rays(ds, n: int, seed: int) -> tuple:
             np.arange(n) % 7 != 3)
 
 
+def axis_limits(ds, walk, kernel, plain, axis) -> tuple:
+    """(t, best) to put an axis batch's t limits at (at_t_limits): the plain
+    version's closest hits; for a walk not in EXACT only on the lanes where
+    its kernel finds the same winner at the same t bits (best -1
+    elsewhere), as tests/test_torch_walks.py::_hard_rays does."""
+    tp, bp = plain(ds, *axis)
+    if walk not in EXACT:
+        tk, bk = kernel(ds, *axis)
+        bp = torch.where((bk == bp) & (tk.view(torch.int32)
+                                       == tp.view(torch.int32)), bp, -1)
+    return tp, bp
+
+
 def at_t_limits(args, t, best) -> list:
     """A ray batch with each hit lane's t limits at its hit: a third with
     t_min = t, a third with t_max = t, a third with t_max one float below
@@ -528,7 +552,7 @@ def walks():
         "brute": TK.intersect_tris_brute_plain,
         "quad": TK.intersect_tris_quad_plain,
         "quadrow": lambda *a: TK.intersect_tris_quad_plain(*a, rowrec=True),
-        "pair": intersect_tris_plain,
+        "pair": TK.intersect_tris_pair_plain,
         "walk": TK.intersect_tris_skiplink_plain,
     }
     return {w: (TK.WALKS[w], plains[w]) for w in WALK_NAMES}
@@ -561,6 +585,63 @@ def compare(walk, mode, tk, bk, tp, bp):
         f"{n} rays, {int((bk >= 0).sum())} hits, {int(ties.sum())} equal-t "
         f"ties, {wrong} other winner mismatches, max |dt| {err:.3g} (rtol "
         f"{T_RTOL})")
+
+
+def compare_trees(ds, mode, args, tk, bk, tp, bp, limit: int = 8) -> tuple:
+    """Hold the bvh8t kernel against its plain version, which walks another
+    tree (the XLA stack walk over the child-pair rows), on axis rays. Hit
+    bits equal; winners equal but for ties (a different winner at t within
+    T_RTOL, up to AXIS_TIE_SHARE of the live rays); t within T_RTOL. Except
+    for fault F3 (ROADMAP section 3): a walk's box test can cull a box that
+    holds a hit, (a) where the ray lies in the plane of a box face across
+    which its direction is zero (0 * inf = NaN in the slab test), or (b)
+    where the box's entry t rounds above the hit's t and t_best lies
+    between them (t_max at a hit's t), so the hit is lost in the tree that
+    has that box and found in the other. A lane outside the contract passes
+    as F3 only where the brute force plain version, which culls nothing,
+    finds a hit too: at the nearer of the two walks' t (within T_RTOL) in
+    closest-hit. Prints the first `limit` lanes outside the contract (the
+    ray, both answers, the brute force's). Returns (ok, report)."""
+    from tpu_raytracing_torch.ops.traverse_kernels import (
+        intersect_tris_brute_plain,
+    )
+
+    tk, bk, tp, bp = (x.cpu().numpy() for x in (tk, bk, tp, bp))
+    hits = bk >= 0
+    mismatch = hits != (bp >= 0)
+    if mode == "any_hit":
+        rest, ties = mismatch, np.zeros_like(mismatch)
+    else:
+        close = np.isclose(tk, tp, rtol=T_RTOL, atol=0.0)
+        ties = (bk != bp) & hits & ~mismatch & close
+        rest = (bk != bp) & ~ties
+    lanes = np.nonzero(rest)[0]
+    f3 = np.zeros(lanes.size, bool)
+    if lanes.size:
+        sub = torch.from_numpy(lanes).to(args[0].device)
+        tb, bb = (x.cpu().numpy() for x in intersect_tris_brute_plain(
+            ds, *[x[sub] for x in args]))
+        near = np.minimum(np.where(bk[lanes] >= 0, tk[lanes], np.inf),
+                          np.where(bp[lanes] >= 0, tp[lanes], np.inf))
+        f3 = (bb >= 0) & (mode == "any_hit"
+                          or np.isclose(near, tb, rtol=T_RTOL, atol=0.0))
+        o, d, t_min, t_max, _ = (x.cpu().numpy() for x in args)
+        for j, i in enumerate(lanes[:limit]):
+            print(f"#   lane {i}{' (F3)' if f3[j] else ''}: o {o[i].tolist()} "
+                  f"d {d[i].tolist()} t_min {t_min[i]!r} t_max {t_max[i]!r}: "
+                  f"kernel ({tk[i]!r}, {bk[i]}), plain ({tp[i]!r}, {bp[i]}), "
+                  f"brute force ({tb[j]!r}, {bb[j]})", flush=True)
+        if lanes.size > limit:
+            print(f"#   ... {lanes.size - limit} more lanes", flush=True)
+    same = hits & (bk == bp)
+    t_ok = bool(np.allclose(tk[same], tp[same], rtol=T_RTOL, atol=0.0))
+    few = ties.sum() <= AXIS_TIE_SHARE * int(args[4].sum())
+    ok = bool(f3.all()) and few and t_ok
+    return ok, (
+        f"{bk.shape[0]} rays, {int(hits.sum())} hits, {int(mismatch.sum())} "
+        f"hit-bit mismatches, {int(ties.sum())} equal-t ties, {int(f3.sum())} "
+        f"lanes of fault F3 (a hit the brute force finds, in a box one tree "
+        f"culls), {int((~f3).sum())} other differences")
 
 
 def table_words(ds, walk: str) -> int:
@@ -721,7 +802,8 @@ def phase_kernel(ds, settings, ptxas_log: str) -> dict:
           f"{card.children.shape[0]} child records, {card.tris.shape[0]} "
           f"triangle rows", flush=True)
     ptxas = {}  # kernel -> its instantiations' reports
-    for kernel in ("bvh8t_walk", "t8_brute", "quad_walk", "skip_walk"):
+    for kernel in ("bvh8t_walk", "t8_brute", "quad_walk", "pair_walk",
+                   "skip_walk"):
         ptxas[kernel] = ptxas_report(ptxas_log, kernel)
         for r in ptxas[kernel]:
             print(f"# ptxas {kernel} {r['instance']}: "
@@ -758,20 +840,25 @@ def phase_kernel(ds, settings, ptxas_log: str) -> dict:
             print(f"# brute {mode} on {name}, {label}: {report}: "
                   f"{'ok' if edge_ok else 'FAIL'}", flush=True)
             ok = ok and edge_ok
-    # K4 and K6 on axis rays (NaN slabs) and at their hits' t
-    for walk, mode in itertools.product(PERSISTENT, ("closest_hit",
-                                                     "any_hit")):
+    # K4, K5, K6 and K1/K2 on axis rays (NaN slabs) and at their hits' t
+    for walk, mode in itertools.product((*PERSISTENT, "bvh8t"),
+                                        ("closest_hit", "any_hit")):
         kernel, plain = walks()[walk]
         ee = mode == "any_hit"
         axis = [torch.from_numpy(x).to(ds.device)
                 for x in axis_rays(ds, N_EDGE_RAYS, 7)]
-        held = (axis, at_t_limits(axis, *plain(ds, *axis)))
+        held = (axis, at_t_limits(axis, *axis_limits(ds, walk, kernel,
+                                                      plain, axis)))
         for label, args in zip(("axis rays", "axis rays at their hits' t"),
                                held):
             tp, bp = plain(ds, *args, ee)
             tk, bk = kernel(ds, *args, ee)
             torch.cuda.synchronize()
-            hard_ok, _, report = compare(walk, mode, tk, bk, tp, bp)
+            if walk in EXACT:
+                hard_ok, _, report = compare(walk, mode, tk, bk, tp, bp)
+            else:
+                hard_ok, report = compare_trees(ds, mode, args, tk, bk, tp,
+                                                bp)
             print(f"# {walk} {mode}, {label}: {report}: "
                   f"{'ok' if hard_ok else 'FAIL'}", flush=True)
             ok = ok and hard_ok

@@ -1,25 +1,26 @@
-"""Time the port's redesigned BVH4 walk (K4, quad and quadrow) and skip-link
-walk (K6) against their versions of commit 6c8ef30 and against the change
-with one step of its design undone, and K1/K2 (the bvh8t walk, whose
-scheduler moved into the shared header) beside them, on one NVIDIA GPU.
+"""Time the port's redesigned child-pair walk (K5) against its version of
+commit 5695c8b and against the change with one step of its design undone,
+and the other persistent walks (K1/K2 bvh8t, K4 quad and quadrow, K6
+skip-link) against the same commit beside it, on one NVIDIA GPU.
 
     python3 scripts/torch_walk_ab.py [--parent DIR] [--reps 20] [--rounds 2]
 
-The parent's quad_walk.cu, skip_walk.cu, bvh8t_walk.cu and
-traverse_common.cuh are read from DIR, or from `git show 6c8ef30:...` when
-no DIR is given (a git checkout). Builds, each with the port's nvcc flags
-(native_cuda.NVCC_FLAGS) into a library of its own in a temporary
-directory, all nvcc runs started together:
+The parent's walk sources (SOURCES) are read from DIR, or from `git show
+5695c8b:...` when no DIR is given (a git checkout). Builds, each with the
+port's nvcc flags (native_cuda.NVCC_FLAGS) into a library of its own in a
+temporary directory, all nvcc runs started together:
 
-- parent: those four sources;
+- parent: those sources;
 - change: tpu_raytracing_torch/csrc as it is;
 - one build a step of the design, the change with that step undone by a
-  text substitution (STEPS below): K6's other kChunk candidate (32
-  consecutive rays a warp where the source has 4, and 4 where it has 32),
-  K6's loads of both successor candidates before the slab test, the
-  select-form NaN min / max in K4's and K6's slab test, and the other
-  refill threshold (16 idle lanes of a warp where the source waits for all
-  32, and 32 where it takes 16) in K4 and K6.
+  text substitution (STEPS below), of the sources of the walks it touches;
+  or with a step it left out put in. K5: four 16-byte row loads in place
+  of its 15 4-byte ones, the next row's loads at the top of the visit in
+  place of before the leaf test, and both of these; the select-form
+  NaN min / max in place of the PTX one in the slab test, no cross-lane
+  leaf test of sparse warps, the other refill threshold (also K4 and K6),
+  and kChunk 1 or 32 in place of 4. K6: kChunk 32 in place of 4, and both
+  successor candidates loaded in place of the chosen one.
 
 Each is called through its C entries on chip_smoke.py's path shape: the
 camera rays of coated_diffuse_bunny at 500x500 (closest-hit) and their
@@ -36,7 +37,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import subprocess
 import sys
 import tempfile
@@ -47,19 +47,21 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-PARENT = "6c8ef30"
-SOURCES = ("quad_walk.cu", "skip_walk.cu", "bvh8t_walk.cu",
+PARENT = "5695c8b"
+SOURCES = ("pair_walk.cu", "quad_walk.cu", "skip_walk.cu", "bvh8t_walk.cu",
            "traverse_common.cuh")
-CHUNK = re.compile(r"constexpr int kChunk = (\d+);")
+SOURCE_OF = {"bvh8t": "bvh8t_walk.cu", "quad": "quad_walk.cu",
+             "quadrow": "quad_walk.cu", "pair": "pair_walk.cu",
+             "walk": "skip_walk.cu"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _RAYS = [_P] * 8
-# the parent's C entries: K4 and K6 took no fetch counter
+# the parent's C entries: K5 took no fetch counter
 PARENT_SIGNATURES = {
-    "tpu_rt_quad_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _I, _P],
-    "tpu_rt_skip_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],
+    "tpu_rt_pair_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],
 }
 ENTRY = {"bvh8t": "tpu_rt_bvh8t_walk", "quad": "tpu_rt_quad_walk",
-         "quadrow": "tpu_rt_quad_walk", "walk": "tpu_rt_skip_walk"}
+         "quadrow": "tpu_rt_quad_walk", "pair": "tpu_rt_pair_walk",
+         "walk": "tpu_rt_skip_walk"}
 
 
 def parent_sources(directory: Path | None, tmp: Path) -> Path:
@@ -76,13 +78,54 @@ def parent_sources(directory: Path | None, tmp: Path) -> Path:
     return out
 
 
-# a step of the design undone: name -> (walks it touches, {source:
-# [(text, replacement)]}); in the texts, {ours} is the source's kChunk and
-# {chunk} the other candidate
+# K5's row loads as the source has them (15 4-byte loads), and as four
+# 16-byte loads
+_SCALAR_ROW = """  const float* f = rows + static_cast<size_t>(m) * 16;
+  return Row{make_float4(f[0], f[1], f[2], f[3]),
+             make_float4(f[4], f[5], f[6], f[7]),
+             make_float4(f[8], f[9], f[10], f[11]),
+             make_float4(f[12], f[13], f[14], 0.f)};"""
+_VECTOR_ROW = """  const float4* p =
+      reinterpret_cast<const float4*>(rows + static_cast<size_t>(m) * 16);
+  return Row{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};"""
+# K5's next row loaded at the top of the next visit, in place of as soon
+# as the visit has chosen it
+_LATE_ROW = [
+    ("  Row row{};\n", ""),
+    ("          if ((cur & 7) == 0) row = load_row(rows, cur >> 3);\n", ""),
+    ("""      // the next row goes out now, before the leaf test
+      if (cur != kDone) row = load_row(rows, cur >> 3);
+""", ""),
+    ("""      ++visits;
+      const float box_l[6]""", """      const Row row = load_row(rows, cur >> 3);
+      ++visits;
+      const float box_l[6]""")]
+# a step of the design undone, or one it left out put in: name -> (walks
+# it touches, {source: [(text, replacement)]}); every text must be in its
+# source
 STEPS = {
-    "kChunk {chunk}": (("walk",), {"skip_walk.cu": [
-        ("constexpr int kChunk = {ours};",
-         "constexpr int kChunk = {chunk};")]}),
+    "16-byte row loads": (("pair",), {"pair_walk.cu": [
+        (_SCALAR_ROW, _VECTOR_ROW)]}),
+    "next row loaded at the top of the visit": (("pair",), {
+        "pair_walk.cu": _LATE_ROW}),
+    "16-byte rows loaded at the top of the visit": (("pair",), {
+        "pair_walk.cu": [(_SCALAR_ROW, _VECTOR_ROW), *_LATE_ROW]}),
+    "select-form slab min / max": (("quad", "quadrow", "pair", "walk"), {
+        name: [("tpu_rt::slab_hit<true>(", "tpu_rt::slab_hit<false>(")]
+        for name in ("quad_walk.cu", "pair_walk.cu", "skip_walk.cu")}),
+    "no cross-lane leaves": (("pair",), {"traverse_common.cuh": [
+        ("  if (__popc(leafy) <= kCoop) {", "  if (false) {")]}),
+    "the other refill threshold": (("quad", "quadrow", "pair", "walk"), {
+        "quad_walk.cu": [("constexpr int kRefill = EARLY_EXIT ? 32 : 16;",
+                          "constexpr int kRefill = EARLY_EXIT ? 16 : 32;")],
+        **{name: [("constexpr int kRefill = 16;",
+                   "constexpr int kRefill = 32;")]
+           for name in ("pair_walk.cu", "skip_walk.cu")}}),
+    "kChunk 1": (("pair",), {"pair_walk.cu": [
+        ("constexpr int kChunk = 4;", "constexpr int kChunk = 1;")]}),
+    "kChunk 32": (("pair", "walk"), {
+        name: [("constexpr int kChunk = 4;", "constexpr int kChunk = 32;")]
+        for name in ("pair_walk.cu", "skip_walk.cu")}),
     "both successors loaded first": (("walk",), {"skip_walk.cu": [
         ("""      ++visits;
       const float box[6]""",
@@ -95,51 +138,34 @@ STEPS = {
       nb = __ldg(next + 1);""",
          """      na = down ? da : sa;
       nb = down ? db : sb;""")]}),
-    "select-form slab min / max": (("quad", "quadrow", "walk"), {
-        name: [("tpu_rt::slab_hit<true>(", "tpu_rt::slab_hit<false>(")]
-        for name in ("quad_walk.cu", "skip_walk.cu")}),
-    "the other refill threshold": (("quad", "quadrow", "walk"), {
-        "quad_walk.cu": [("constexpr int kRefill = EARLY_EXIT ? 32 : 16;",
-                          "constexpr int kRefill = EARLY_EXIT ? 16 : 32;")],
-        "skip_walk.cu": [("constexpr int kRefill = 16;",
-                          "constexpr int kRefill = 32;")]}),
 }
 
 
 def undo_step(csrc: Path, tmp: Path, i: int, subs: dict) -> Path:
-    """A copy of the change's sources with one step's substitutions; each
-    must apply exactly once."""
-    text = (csrc / "skip_walk.cu").read_text()
-    ours = int(CHUNK.search(text).group(1))
-    chunk = 4 if ours == 32 else 32
+    """A copy of the change's sources with one step's substitutions, each of
+    whose texts must be in its source."""
     out = tmp / f"step{i}"
     out.mkdir()
     for name in SOURCES:
         src = (csrc / name).read_text()
         for old, new in subs.get(name, []):
-            old = old.format(ours=ours, chunk=chunk)
-            if src.count(old) != 1:
-                raise RuntimeError(f"{name}: the text to undo is not there "
-                                   f"once: {old!r}")
-            src = src.replace(old, new.format(ours=ours, chunk=chunk))
+            if old not in src:
+                raise RuntimeError(f"{name}: the text to undo is not there: "
+                                   f"{old!r}")
+            src = src.replace(old, new)
         (out / name).write_text(src)
     return out
 
 
-def chunk_candidate(csrc: Path) -> int:
-    """K6's other kChunk candidate."""
-    ours = int(CHUNK.search((csrc / "skip_walk.cu").read_text()).group(1))
-    return 4 if ours == 32 else 32
-
-
 def build_all(dirs: dict, tmp: Path) -> dict:
-    """tag -> (library, ptxas lines), every nvcc started together."""
+    """tag -> (library, ptxas lines), every nvcc started together; dirs:
+    tag -> (source directory, the walks whose sources it builds)."""
     from tpu_raytracing_torch import native_cuda as nc
 
     jobs = {}
-    for i, (tag, d) in enumerate(dirs.items()):
+    for i, (tag, (d, walks)) in enumerate(dirs.items()):
         out = tmp / f"walk_ab_{i}.so"
-        srcs = [str(d / n) for n in SOURCES if n.endswith(".cu")]
+        srcs = [str(d / n) for n in sorted({SOURCE_OF[w] for w in walks})]
         jobs[tag] = (out, subprocess.Popen(
             [nc._nvcc(), *nc.NVCC_FLAGS, "-shared", "-I", str(d), "-o",
              str(out), *srcs], stdout=subprocess.PIPE,
@@ -148,10 +174,10 @@ def build_all(dirs: dict, tmp: Path) -> dict:
     for tag, (out, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {dirs[tag]}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {dirs[tag][0]}:\n{log}")
         lib = ctypes.CDLL(str(out))
         for name, sig in nc.SIGNATURES.items():
-            if name not in ENTRY.values():
+            if name not in {ENTRY[w] for w in dirs[tag][1]}:
                 continue
             fn = getattr(lib, name)
             fn.restype = _I
@@ -173,7 +199,7 @@ def call(lib, parent: bool, walk: str, ds, rays, counts=None):
     next_ray = torch.empty(1, dtype=torch.int32, device=dev)
     ray_args = [x.data_ptr() for x in (o, d, t_min, t_max, active, t, best)]
     ray_args.append(None if counts is None else counts.data_ptr())
-    ctr = [] if parent and walk != "bvh8t" else [next_ray.data_ptr()]
+    ctr = [] if parent and walk == "pair" else [next_ray.data_ptr()]
     stream = torch.cuda.current_stream().cuda_stream
     ee = int(early_exit)
     if walk == "bvh8t":
@@ -181,6 +207,11 @@ def call(lib, parent: bool, walk: str, ds, rays, counts=None):
         rc = lib.tpu_rt_bvh8t_walk(
             c.nodes.data_ptr(), c.children.data_ptr(), c.tris.data_ptr(),
             *ctr, *ray_args, n, int(ds.meta.t8_width), ee, stream)
+    elif walk == "pair":
+        rc = lib.tpu_rt_pair_walk(
+            ds.bvh2_rows_pk.data_ptr(), ds.tri_pack_pk.data_ptr(), *ctr,
+            *ray_args, n, int(ds.meta.root_meta), int(ds.meta.n_tris), ee,
+            stream)
     elif walk == "walk":
         rc = lib.tpu_rt_skip_walk(
             ds.bvh_nodes_pk.data_ptr(), ds.tri_pack_pk.data_ptr(), *ctr,
@@ -230,17 +261,15 @@ def main() -> int:
     print(f"# card: {card_name}", flush=True)
     with tempfile.TemporaryDirectory() as td:
         tmp = Path(td)
-        dirs = {"parent": parent_sources(args.parent, tmp),
-                "change": nc.CSRC}
-        pairs = [(w, w, "parent") for w in ("bvh8t", "quad", "quadrow",
-                                            "walk")]
+        dirs = {"parent": (parent_sources(args.parent, tmp), tuple(ENTRY)),
+                "change": (nc.CSRC, tuple(ENTRY))}
+        pairs = [(w, w, "parent") for w in ENTRY]
         for i, (step, (step_walks, subs)) in enumerate(STEPS.items()):
-            label = step.format(chunk=chunk_candidate(nc.CSRC))
-            dirs[label] = undo_step(nc.CSRC, tmp, i, subs)
-            pairs += [(f"{w} with {label}", w, label) for w in step_walks]
+            dirs[step] = (undo_step(nc.CSRC, tmp, i, subs), step_walks)
+            pairs += [(f"{w} with {step}", w, step) for w in step_walks]
         built = build_all(dirs, tmp)
         for tag, (_, ptxas) in built.items():
-            print(f"# {tag} = {dirs[tag]}:", flush=True)
+            print(f"# {tag} = {dirs[tag][0]}:", flush=True)
             for ln in ptxas:
                 print(f"#   {ln}")
         settings = RaytracerSettings(

@@ -31,8 +31,9 @@ from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
 from chip_smoke import (
-    EXACT, PERSISTENT, at_t_limits, axis_rays, bunnies_glb, edge_rays,
-    emissive_box, repeated_triangles, textured_cubes,
+    EXACT, PERSISTENT, at_t_limits, axis_limits, axis_rays, bunnies_glb,
+    compare_trees, edge_rays, emissive_box, repeated_triangles,
+    textured_cubes,
 )
 
 pytestmark = pytest.mark.cuda
@@ -44,7 +45,7 @@ WALKS = {
     "quad": (TK.intersect_tris_quad, TK.intersect_tris_quad_plain),
     "quadrow": (TK.intersect_tris_quadrow,
                 lambda *a: TK.intersect_tris_quad_plain(*a, rowrec=True)),
-    "pair": (TK.intersect_tris_pair, intersect_tris_plain),
+    "pair": (TK.intersect_tris_pair, TK.intersect_tris_pair_plain),
     "walk": (TK.intersect_tris_skiplink, TK.intersect_tris_skiplink_plain),
 }
 
@@ -110,7 +111,7 @@ def test_kernel_vs_plain(cuda_scene, early_exit):
                          ids=["closest_hit", "any_hit"])
 @pytest.mark.parametrize("walk", list(WALKS))
 def test_walk_kernel_vs_plain(cuda_scene, walk, early_exit):
-    """K3-K6 on 16,384 random rays; all but the pair walk bit for bit."""
+    """K3-K6 on 16,384 random rays, bit for bit."""
     ds = cuda_scene
     kernel, plain = WALKS[walk]
     args = _rays(ds, 16384, 18, early_exit)
@@ -176,7 +177,7 @@ def brute_scenes(cuda_scene):
 
 
 def _exact_vs_plain(ds, walk, args, early_exit):
-    """One launch of a K3, K4 or K6 kernel against its plain version, bit
+    """One launch of a K3, K4, K5 or K6 kernel against its plain version, bit
     for bit; returns the plain (t, best)."""
     kernel, plain = WALKS[walk]
     reset_launch_counts()
@@ -243,7 +244,7 @@ def test_brute_repeats_bit_for_bit(cuda_scene):
 @pytest.mark.parametrize("n", [1, 127, 513, 16385])
 @pytest.mark.parametrize("walk", PERSISTENT)
 def test_persistent_walk_bit_for_bit(cuda_scene, walk, n, early_exit):
-    """K4 and K6 at ray counts that fill no whole warp, block or fetch
+    """K4, K5 and K6 at ray counts that fill no whole warp, block or fetch
     chunk, every 7th lane inactive and every other lane with its own
     t_max."""
     ds = cuda_scene
@@ -262,7 +263,7 @@ def test_persistent_walk_bit_for_bit(cuda_scene, walk, n, early_exit):
                          ids=["closest_hit", "any_hit"])
 @pytest.mark.parametrize("walk", PERSISTENT)
 def test_persistent_walk_hard_rays(cuda_scene, walk, early_exit):
-    """K4 and K6 bit for bit on axis rays (zero direction components from
+    """K4, K5 and K6 bit for bit on axis rays (zero direction components from
     node box planes: NaN slabs; chip_smoke.py::axis_rays), then on the same
     rays with t_min or t_max at each hit's t."""
     ds = cuda_scene
@@ -277,28 +278,29 @@ def test_persistent_walk_hard_rays(cuda_scene, walk, early_exit):
                          ids=["closest_hit", "any_hit"])
 @pytest.mark.parametrize("walk", PERSISTENT)
 def test_persistent_walk_repeats_bit_for_bit(cuda_scene, walk, early_exit):
-    """Two launches on the same rays give the same bits and counters,
+    """Three launches on the same rays give the same bits and counters,
     whichever warp the fetch counter hands each ray to."""
     ds = cuda_scene
     kernel, _ = WALKS[walk]
     args = _rays(ds, 65536, 24, early_exit)
     runs = []
-    for _ in range(2):
+    for _ in range(3):
         counts = torch.zeros((65536, 3), dtype=torch.int32, device=ds.device)
         runs.append((*kernel(ds, *args, early_exit, counts=counts), counts))
     torch.cuda.synchronize()
-    (t0, b0, c0), (t1, b1, c1) = runs
-    assert torch.equal(b0, b1) and torch.equal(c0, c1)
-    assert torch.equal(t0.view(torch.int32), t1.view(torch.int32))
+    t0, b0, c0 = runs[0]
+    for t1, b1, c1 in runs[1:]:
+        assert torch.equal(b0, b1) and torch.equal(c0, c1)
+        assert torch.equal(t0.view(torch.int32), t1.view(torch.int32))
 
 
 @pytest.mark.parametrize("walk", PERSISTENT)
 def test_misaligned_table_raises(cuda_scene, walk):
-    """The K4 and K6 kernels read 16-byte records: a table that starts off
-    a 16-byte boundary raises, with no fallback."""
+    """The K4, K5 and K6 kernels read 16-byte records: a table that starts
+    off a 16-byte boundary raises, with no fallback."""
     ds = cuda_scene
     name = {"quad": "bvh4_recs_pk", "quadrow": "bvh4_rows",
-            "walk": "bvh_nodes_pk"}[walk]
+            "pair": "bvh2_rows_pk", "walk": "bvh_nodes_pk"}[walk]
     table = getattr(ds, name)
     buf = torch.zeros(table.numel() + 1, dtype=table.dtype, device=ds.device)
     shifted = buf[1:].view(table.shape)
@@ -306,6 +308,32 @@ def test_misaligned_table_raises(cuda_scene, walk):
     bad = dataclasses.replace(ds, **{name: shifted})
     with pytest.raises(ValueError, match="16-byte"):
         WALKS[walk][0](bad, *_rays(ds, 128, 25, False))
+
+
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+def test_bvh8t_axis_rays(cuda_scene, early_exit):
+    """K1/K2 on axis rays (NaN slabs; chip_smoke.py::axis_rays), then on the
+    same rays with t_min or t_max at the hits' t where the kernel and the
+    plain walk agree bit for bit, against the plain walk (another tree) by
+    the traversal contract: hit bits equal, winners equal but for ties (a
+    different winner at t within rtol 1e-5, at most 2% of the live rays),
+    t within rtol 1e-5; or fault F3, a hit in a box that one tree's box test
+    culls and the brute-force plain version finds
+    (chip_smoke.py::compare_trees)."""
+    ds = cuda_scene
+    mode = "any_hit" if early_exit else "closest_hit"
+    args = [torch.from_numpy(x).to(ds.device)
+            for x in axis_rays(ds, 16384, 62)]
+    lim = at_t_limits(args, *axis_limits(ds, "bvh8t", intersect_tris_bvh8t,
+                                         intersect_tris_plain, args))
+    for rays in (args, lim):
+        tp, bp = intersect_tris_plain(ds, *rays, early_exit)
+        tk, bk = intersect_tris_bvh8t(ds, *rays, early_exit)
+        torch.cuda.synchronize()
+        ok, report = compare_trees(ds, mode, rays, tk, bk, tp, bp)
+        assert ok, report
+        assert (bp >= 0).sum() > 4096
 
 
 def test_stack_caps_raise(cuda_scene):

@@ -8,8 +8,8 @@ tests/test_pallas_traverse.py selects them. Their CUDA counterparts
 tests/test_torch_cuda.py. Winners must match exactly except for equal-t
 ties between leaves; t agrees within rtol 1e-5 (XLA contracts multiply-
 adds); any-hit bits must be equal. The walks whose kernels repeat their
-plain versions bit for bit (quad, quadrow, walk) are held on the rays where
-a kernel is most likely to slip too: at their hits' t and along axes.
+plain versions bit for bit (quad, quadrow, pair, walk) are held on the rays
+where a kernel is most likely to slip too: at their hits' t and along axes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -46,7 +46,7 @@ PLAINS = {
     "brute": TK.intersect_tris_brute_plain,
     "quad": TK.intersect_tris_quad_plain,
     "quadrow": lambda *a: TK.intersect_tris_quad_plain(*a, rowrec=True),
-    "pair": T8.intersect_tris_plain,
+    "pair": TK.intersect_tris_pair_plain,
     "walk": TK.intersect_tris_skiplink_plain,
 }
 SWITCH = ("TPU_RT_PALLAS_KERNEL", "TPU_RT_BRUTE_GROUPS")
@@ -139,10 +139,10 @@ def _hard_rays(jds, tds, walk, kind):
 @pytest.mark.parametrize("kind", ["at_t_limits", "axis"])
 @pytest.mark.parametrize("early_exit", [False, True],
                          ids=["closest_hit", "any_hit"])
-@pytest.mark.parametrize("walk", ["quad", "quadrow", "walk"])
+@pytest.mark.parametrize("walk", ["quad", "quadrow", "pair", "walk"])
 def test_plain_vs_pallas_kernel_hard_rays(scenes, monkeypatch, walk,
                                           early_exit, kind):
-    """The plain versions that the K4 and K6 kernels repeat bit for bit,
+    """The plain versions that the K4, K5 and K6 kernels repeat bit for bit,
     against the Pallas kernel on rays at their hits' t (the <= rule of the
     leaf update and t >= t_min) and on axis rays (NaN slabs). Any-hit bits
     equal; closest-hit winners equal but for equal-t ties, t within rtol
@@ -173,6 +173,119 @@ def test_plain_vs_pallas_kernel_hard_rays(scenes, monkeypatch, walk,
     assert ties.sum() <= (1 if kind == "at_t_limits" else 0.02 * hit.sum())
 
 
+@pytest.mark.parametrize("early_exit", [False, True],
+                         ids=["closest_hit", "any_hit"])
+@pytest.mark.parametrize("scene,kind", [
+    ("coated_diffuse_bunny", "random"), ("coated_diffuse_bunny", "axis"),
+    ("checkered_plane", "random"), ("sphere", "random"),
+], ids=["bunny", "bunny_axis", "single_leaf", "no_triangles"])
+def test_pair_plain_vs_stack_walk(scene, kind, early_exit):
+    """K5's plain version, which walks in the kernel's child order, against
+    the XLA stack walk over the same child-pair rows (near-first by entry
+    distance, leaves parked): on the bunny, on a single-leaf tree
+    (checkered_plane's two triangles, root_meta & 7) and on a scene with no
+    triangles (sphere, root_meta -1). Hit bits equal in both modes;
+    closest-hit winners equal but for equal-t ties (a different winner at
+    t within rtol 1e-5: at most one on random rays, 2% of the hits on axis
+    rays), t within rtol 1e-5."""
+    tds = compile_scene(get_test_scene(scene).scene_func(), "cpu")
+    if kind == "axis":
+        rays = axis_rays(tds, 1024, 43)
+    else:
+        rays = _query(tds, 1024, 33, early_exit)
+    args = [torch.from_numpy(x) for x in rays]
+    tp, bp = TK.intersect_tris_pair_plain(tds, *args, early_exit)
+    ts, bs = T8.intersect_tris_plain(tds, *args, early_exit)
+    tp, bp, ts, bs = (x.numpy() for x in (tp, bp, ts, bs))
+    act = rays[4]
+    assert np.all(bp[~act] == -1) and np.all(tp[~act] == rays[3][~act])
+    np.testing.assert_array_equal(bp >= 0, bs >= 0)
+    hits = int((bp >= 0).sum())
+    if scene == "sphere":
+        assert hits == 0 and np.array_equal(tp, rays[3])
+        return
+    assert hits > 64  # the rays hit the scene
+    if early_exit:
+        return
+    hit = bp >= 0
+    np.testing.assert_allclose(tp[hit], ts[hit], rtol=1e-5)
+    ties = (bp != bs) & hit
+    assert ties.sum() <= (0.02 * hits if kind == "axis" else 1)
+
+
+def _slab_nan_bounds_nothing(origin, inv_dir, bb_min, bb_max):
+    """ops/intersect.py::ray_aabb, except that an axis where the direction
+    is zero bounds nothing when the origin lies in the slab (and everything
+    when it does not), in place of the 0 * inf = NaN that culls the box."""
+    a = (bb_min - origin) * inv_dir
+    b = (bb_max - origin) * inv_dir
+    zero = torch.isinf(inv_dir).expand_as(a)
+    inside = (bb_min <= origin) & (origin <= bb_max)
+    inf = torch.full_like(a, float("inf"))
+    a = torch.where(zero, torch.where(inside, -inf, inf), a)
+    b = torch.where(zero, torch.where(inside, inf, -inf), b)
+    return (torch.amax(torch.minimum(a, b), dim=-1),
+            torch.amin(torch.maximum(a, b), dim=-1))
+
+
+def test_f3_nan_slab_culls_grazing_hits(scenes, monkeypatch):
+    """Fault F3 (ROADMAP section 3), cause (a): a ray that lies in the plane
+    of a box face, across which its direction is zero, meets 0 * inf = NaN
+    in the slab test, and the walk culls the box. On the cube every axis
+    ray (chip_smoke.py::axis_rays) lies in the plane of a face of the root
+    box and grazes the triangles of the faces across that plane at an edge:
+    the brute force, which culls nothing, finds those hits (the port's and
+    the JAX package's alike), and the plain stack walk, which keeps the NaN
+    rule as the JAX package has it, loses every one, as JAX's bvh8t kernel
+    does; the same walk with a slab test where such an axis bounds nothing
+    finds them all, at the brute force's t."""
+    jds, tds = scenes["cube"]
+    rays = axis_rays(tds, 4096, 7)
+    args = [torch.from_numpy(x) for x in rays]
+    tb, bb = TK.intersect_tris_brute_plain(tds, *args)
+    assert (bb >= 0).sum() > 1024
+    for env in ({"TPU_RT_BRUTE_GROUPS": "4096"}, {}):
+        _set_switch(monkeypatch, env)
+        _, p_k = intersect_tris_pallas(jds, *[jnp.asarray(x) for x in rays])
+        np.testing.assert_array_equal(np.asarray(p_k) >= 0,
+                                      bb.numpy() >= 0 if env else False)
+    _, b_nan = T8.intersect_tris_plain(tds, *args)
+    assert torch.all(b_nan == -1)
+    monkeypatch.setattr(T8, "ray_aabb", _slab_nan_bounds_nothing)
+    t_all, b_all = T8.intersect_tris_plain(tds, *args)
+    assert torch.equal(b_all >= 0, bb >= 0)
+    hit = bb >= 0
+    np.testing.assert_allclose(t_all[hit], tb[hit], rtol=1e-5)
+
+
+@pytest.mark.parametrize("walk", ["stack", "pair", "walk"])
+def test_f3_box_entry_culls_a_hit_at_t_max(scenes, monkeypatch, walk):
+    """Fault F3, cause (b): a leaf box's entry t, from the slab test, can
+    round above the t that Moller-Trumbore gives a triangle in it, so with
+    t_max at a hit's own t the box test (t0 <= t_best) culls the box and
+    the walk loses the hit. On random bunny rays with t_max at each closest
+    hit's t, the walks over the BVH2's boxes (the stack walk, the pair and
+    skip-link walks) each lose some hits; the brute force finds each at
+    that t, bit for bit, and a slab test without the NaN rule loses them
+    too."""
+    _, tds = scenes["coated_diffuse_bunny"]
+    plain = {"stack": T8.intersect_tris_plain,
+             "pair": TK.intersect_tris_pair_plain,
+             "walk": TK.intersect_tris_skiplink_plain}[walk]
+    args = [torch.from_numpy(x) for x in _query(tds, 1024, 31, False)]
+    t, b = plain(tds, *args)
+    held = [*args[:3], torch.where(b >= 0, t, args[3]), args[4]]
+    lost = torch.nonzero((b >= 0) & (plain(tds, *held)[1] < 0))[:, 0]
+    assert 0 < lost.numel() < 0.2 * (b >= 0).sum()
+    sub = [x[lost] for x in held]
+    tb, bb = TK.intersect_tris_brute_plain(tds, *sub)
+    assert torch.equal(bb, b[lost])
+    assert torch.equal(tb.view(torch.int32), t[lost].view(torch.int32))
+    monkeypatch.setattr(T8, "ray_aabb", _slab_nan_bounds_nothing)
+    monkeypatch.setattr(TK, "ray_aabb", _slab_nan_bounds_nothing)
+    assert torch.all(plain(tds, *sub)[1] == -1)
+
+
 @pytest.mark.parametrize("env,walk", [
     ({}, "bvh8t"),
     ({"TPU_RT_PALLAS_KERNEL": "bvh8t"}, "bvh8t"),
@@ -197,7 +310,7 @@ def test_switch_runs_that_plain_version(scenes, monkeypatch, env, walk):
         "brute": (TK, "intersect_tris_brute_plain"),
         "quad": (TK, "intersect_tris_quad_plain"),
         "quadrow": (TK, "intersect_tris_quad_plain"),
-        "pair": (TK, "intersect_tris_plain"),
+        "pair": (TK, "intersect_tris_pair_plain"),
         "walk": (TK, "intersect_tris_skiplink_plain"),
     }[walk]
     calls = []

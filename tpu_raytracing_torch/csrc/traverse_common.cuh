@@ -15,12 +15,12 @@
 // children, not the zero rows that pad a bvh8t group or the empty slots of
 // a node. chip_smoke.py computes the card's bound for a launch from them.
 //
-// The persistent grid of the stack walks K1/K2 (bvh8t_walk.cu) and K4
-// (quad_walk.cu) and of the skip-link walk K6 (skip_walk.cu) is here too:
-// the ray fetch (`RayFetch`, `ray_at`), the launch (`persistent_launch`)
-// and the cross-lane minimum (`warp_min`); so is the leaf phase that K4 and
-// K6 share (`test_leaves`), which tests a sparse warp's leaves across its
-// lanes.
+// The persistent grid of the stack walks K1/K2 (bvh8t_walk.cu), K4
+// (quad_walk.cu) and K5 (pair_walk.cu) and of the skip-link walk K6
+// (skip_walk.cu) is here too: the ray fetch (`RayFetch`, `ray_at`), the
+// launch (`persistent_launch`) and the cross-lane minimum (`warp_min`); so
+// is the leaf phase that K4, K5 and K6 share (`test_leaves`), which tests a
+// sparse warp's leaves across its lanes.
 
 #pragma once
 
@@ -101,8 +101,8 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
 
 // Slab test of the box (min3, max3) at `box`: hit iff t0 <= t1,
 // t1 >= t_min and t0 <= t_best. Writes the entry distance t0 (a NaN's
-// payload depends on PTX_NAN). K4 and K6 take PTX_NAN = true (measured
-// faster on the H100, PERF.md); K1/K2 and K5 keep the select form.
+// payload depends on PTX_NAN). K4, K5 and K6 take PTX_NAN = true (measured
+// faster on the H100, PERF.md); K1/K2 keep the select form.
 template <bool PTX_NAN = false>
 __device__ __forceinline__ bool slab_hit(const Ray& r, const float* box,
                                          float t_best, float* t_entry) {
@@ -143,41 +143,6 @@ __device__ __forceinline__ bool tri_hit(const Ray& r, float p0x, float p0y,
   return den != 0.0f && u >= -kBaryEps && u <= 1.0f + kBaryEps &&
          v >= -kBaryEps && u + v <= 1.0f + kBaryEps && t >= r.t_min &&
          t <= t_best;
-}
-
-// The same test on a packed record p0, p1, p2 (the skip-link, pair and
-// quad tables store vertices; the kernels form the edges as the TPU's do).
-__device__ __forceinline__ bool tri_hit_verts(const Ray& r, const float* v,
-                                              float t_best, float* t_out) {
-  const float p0x = v[0], p0y = v[1], p0z = v[2];
-  return tri_hit(r, p0x, p0y, p0z, v[3] - p0x, v[4] - p0y, v[5] - p0z,
-                 v[6] - p0x, v[7] - p0y, v[8] - p0z, t_best, t_out);
-}
-
-// A leaf of `count` consecutive packed records from triangle `first` of
-// (T8, 16) records: the first minimum inside the leaf, then a <= update
-// against t_best (the ok test holds t <= t_best), as every TPU walk's
-// leaf phase does.
-__device__ __forceinline__ void packed_leaf(const Ray& r,
-                                            const float* __restrict__ tris,
-                                            int first, int count, int n_tris,
-                                            float* t_best, int* best,
-                                            int* n_tests) {
-  float cur_t = INFINITY;
-  int cur_k = 0;
-  for (int k = 0; k < count; ++k) {
-    const int ti = min(first + k, n_tris - 1);
-    float t;
-    if (tri_hit_verts(r, tris + (size_t)ti * 16, *t_best, &t) && t < cur_t) {
-      cur_t = t;
-      cur_k = k;
-    }
-  }
-  *n_tests += count;
-  if (cur_t < INFINITY) {
-    *t_best = cur_t;
-    *best = first + cur_k;
-  }
 }
 
 __device__ __forceinline__ void store_counts(int* __restrict__ counts, int i,
@@ -304,7 +269,8 @@ __device__ __forceinline__ TriRec load_tri(const float4* __restrict__ p) {
   return TriRec{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
 
-// tri_hit_verts on a TriRec: the same operations on the same words.
+// The same test on a TriRec's p0, p1, p2 (the skip-link, pair and quad
+// tables store vertices; the kernels form the edges as the TPU's do).
 __device__ __forceinline__ bool tri_hit_rec(const Ray& r, const TriRec& q,
                                             float t_best, float* t_out) {
   const float p0x = q.a.x, p0y = q.a.y, p0z = q.a.z;
@@ -313,8 +279,8 @@ __device__ __forceinline__ bool tri_hit_rec(const Ray& r, const TriRec& q,
 }
 
 // Record k of the leaf at `first`: a packed triangle (tri_pack_pk, 16 f32
-// a triangle, clamped to the last one as packed_leaf does) or slot k of
-// row `first` of tri_rows (ROWREC).
+// a triangle, clamped to the last one) or slot k of row `first` of
+// tri_rows (ROWREC).
 template <bool ROWREC>
 __device__ __forceinline__ const float4* leaf_tri(
     const float4* __restrict__ tris, int first, int k, int n_tris) {
@@ -348,9 +314,9 @@ __device__ __forceinline__ void append(Pending<N>* p, int meta) {
 
 // The leaf phase of one visit of every lane of the warp (all lanes call
 // it): each lane's pending leaves in order, the first minimum inside a
-// leaf, then a <= update of t_best, as packed_leaf does. When at most kCoop
-// lanes have leaves, the warp tests them together: the j-th leaves of up to
-// four lanes at once, a leaf an 8 lanes and a record a lane, each against
+// leaf, then a <= update of t_best, as every TPU walk's leaf phase does
+// (its ok test holds t <= t_best). When at most kCoop lanes have leaves,
+// the warp tests them together: the j-th leaves of up to four lanes at once, a leaf an 8 lanes and a record a lane, each against
 // its lane's t_best from before the visit's first leaf, and an 8-lane
 // minimum of (t, k). Folding a lane's leaves with t <= the fold's t gives
 // what the leaf-by-leaf updates give: a record that passes against a later,

@@ -115,8 +115,9 @@ SIGNATURES = {
     "tpu_rt_skip_walk": [_P, _P, _P, *_RAYS, _I, _I, _I, _I, _P],
     # nodes_pk, tris_pk, next_ray | n_rays, sentinel, n_tris, early_exit |
     # stream
-    "tpu_rt_pair_walk": [_P, _P, *_RAYS, _I, _I, _I, _I, _P],
-    # rows_pk, tris_pk | n_rays, root_meta, n_tris, early_exit | stream
+    "tpu_rt_pair_walk": [_P, _P, _P, *_RAYS, _I, _I, _I, _I, _P],
+    # rows_pk, tris_pk, next_ray | n_rays, root_meta, n_tris, early_exit |
+    # stream
     "tpu_rt_quad_walk": [_P, _P, _P, *_RAYS, _I, _I, _I, _I, _I, _P],
     # recs, tris, next_ray | n_rays, root_meta, n_tris, rowrec, early_exit |
     # stream

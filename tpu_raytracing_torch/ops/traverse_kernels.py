@@ -20,16 +20,17 @@ in BVH order (-1 where there is none); inactive lanes return (t_max, -1).
 On a CUDA tensor it launches its kernel (csrc/*.cu) and adds one to
 `wrapper.launches[mode]`, or raises; a stack bound above the kernel's cap
 raises too (the JAX package degrades to its XLA walk there instead), and so
-does a table that the quad or skip-link kernel cannot read with 16-byte
-loads. On a CPU tensor it runs its plain version:
+does a table that the quad, pair or skip-link kernel cannot read with
+16-byte loads. On a CPU tensor it runs its plain version:
 
 - brute: `intersect_tris_brute_plain`, dense over the t8 groups, bit-equal
   to the kernel;
 - walk: `intersect_tris_skiplink_plain`, a port of ops/traverse.py::
   _intersect_skiplink over the records of bvh_nodes_pk + tri_pack,
   bit-equal to the kernel;
-- pair: `intersect_tris_plain` (ops/traverse_bvh8t.py), the XLA stack walk
-  over the child-pair rows that bvh2_rows_pk packs;
+- pair: `intersect_tris_pair_plain`, a per-lane child-pair walk over the
+  records of bvh2_rows_pk + tri_pack, in the kernel's child order,
+  bit-equal to the kernel;
 - quad / quadrow: `intersect_tris_quad_plain`, a per-lane BVH4 walk over the
   tables the kernel reads, in the kernel's child order, bit-equal to the
   kernel.
@@ -53,7 +54,7 @@ from ..accel.bvh import MAX_LEAF_SIZE
 from ..device.scene_buffers import Accel, DeviceScene
 from ..native_cuda import on_card
 from .intersect import ray_aabb, ray_triangle_edges
-from .traverse_bvh8t import intersect_tris_bvh8t, intersect_tris_plain
+from .traverse_bvh8t import intersect_tris_bvh8t
 from .walk_common import (
     DONE, STACK_CAP, check_aligned, launch_ray_kernel, leaf_first_min,
     leaf_records, no_hits, pop, ray_counter,
@@ -260,27 +261,104 @@ def intersect_tris_skiplink(ds: Accel, origin, direction, t_min, t_max,
 
 
 # --------------------------------------------------------------------------
-# K5: child-pair walk (csrc/pair_walk.cu); its plain version is the XLA
-# stack walk over the same rows, intersect_tris_plain
+# K5: child-pair walk (csrc/pair_walk.cu)
+
+
+def intersect_tris_pair_plain(ds: Accel, origin, direction, t_min, t_max,
+                              active, early_exit: bool = False):
+    """Per-lane child-pair walk (plain PyTorch) over the records of
+    bvh2_rows_pk and tri_pack, in the kernel's order: a visit tests both
+    child boxes against the t_best it opens with, intersects the hit leaf
+    children left, then right (each the first minimum, then a <= update),
+    descends into the near internal hit (the left child unless the ray's
+    direction on the row's split axis is negative) and pushes the far one,
+    or pops. Any-hit stops after the visit that found a hit."""
+    B = origin.shape[0]
+    t_best, best = no_hits(t_max, B)
+    n_tris = ds.meta.n_tris
+    root = int(ds.meta.root_meta)
+    if B == 0 or n_tris == 0 or root < 0:
+        return t_best, best
+    dev = origin.device
+    inv_dir = 1.0 / direction
+
+    def leaf(li, meta, tb, bs):
+        """The leaf phase of lanes `li` at leaf metas `meta`: (tb, bs)."""
+        first = meta >> 3
+        t_leaf, k, lh = leaf_first_min(
+            origin[li], direction[li], t_min[li], tb,
+            leaf_records(ds.tri_pack, first, n_tris), meta & 7)
+        return (torch.where(lh, t_leaf, tb),
+                torch.where(lh, first + k.to(torch.int32), bs))
+
+    if root & 7:  # single-leaf tree: every live lane tests the leaf
+        lanes = torch.nonzero(active)[:, 0]
+        meta = torch.full((lanes.numel(),), root, dtype=torch.int32,
+                          device=dev)
+        t_best[lanes], best[lanes] = leaf(lanes, meta, t_best[lanes],
+                                          best[lanes])
+        return t_best, best
+
+    rows = ds.bvh2_rows_pk.reshape(-1, 16)
+    cur = torch.where(active, root, DONE).to(torch.int32)
+    sp = torch.zeros(B, dtype=torch.int64, device=dev)
+    stack = torch.zeros((B, max(int(ds.meta.bvh2_depth), 1)),
+                        dtype=torch.int32, device=dev)
+    while True:
+        lanes = torch.nonzero(cur != DONE)[:, 0]
+        if lanes.numel() == 0:
+            return t_best, best
+        row = rows[(cur[lanes] >> 3).long()]
+        ints = row.contiguous().view(torch.int32)
+        meta_l, meta_r, axis = ints[:, 12], ints[:, 13], ints[:, 14]
+        o, inv = origin[lanes], inv_dir[lanes]
+        tmn, tb, bs = t_min[lanes], t_best[lanes], best[lanes]
+        tl0, tl1 = ray_aabb(o, inv, row[:, 0:3], row[:, 3:6])
+        tr0, tr1 = ray_aabb(o, inv, row[:, 6:9], row[:, 9:12])
+        hit_l = (tl0 <= tl1) & (tl1 >= tmn) & (tl0 <= tb)
+        hit_r = (tr0 <= tr1) & (tr1 >= tmn) & (tr0 <= tb)
+        leaf_l, leaf_r = (meta_l & 7) != 0, (meta_r & 7) != 0
+        for meta, take in ((meta_l, hit_l & leaf_l), (meta_r, hit_r & leaf_r)):
+            sub = torch.nonzero(take)[:, 0]
+            if sub.numel():
+                tb[sub], bs[sub] = leaf(lanes[sub], meta[sub], tb[sub],
+                                        bs[sub])
+        go_l, go_r = hit_l & ~leaf_l, hit_r & ~leaf_r
+        both = go_l & go_r
+        neg = torch.gather(direction[lanes], 1, axis[:, None].long())[:, 0] < 0
+        s = sp[lanes]
+        stack[lanes[both], s[both]] = torch.where(neg, meta_l, meta_r)[both]
+        s = s + both.long()
+        nxt = torch.where(go_l, meta_l, torch.full_like(meta_l, DONE))
+        nxt = torch.where(go_r, meta_r, nxt)
+        nxt = torch.where(both, torch.where(neg, meta_r, meta_l), nxt)
+        c, s = pop(nxt, s, stack, lanes, nxt == DONE)
+        if early_exit:
+            c = torch.where(bs >= 0, torch.full_like(c, DONE), c)
+        cur[lanes] = c
+        sp[lanes] = s
+        t_best[lanes] = tb
+        best[lanes] = bs
 
 
 def intersect_tris_pair(ds: Accel, origin, direction, t_min, t_max,
                         active, early_exit: bool = False, counts=None):
-    """K5: the child-pair kernel on the card, intersect_tris_plain on the
+    """K5: the child-pair kernel on the card, its plain version on the
     CPU."""
     if not on_card("pair walk", origin):
-        return intersect_tris_plain(ds, origin, direction, t_min, t_max,
-                                    active, early_exit)
+        return intersect_tris_pair_plain(ds, origin, direction, t_min, t_max,
+                                         active, early_exit)
     if ds.meta.bvh2_depth > STACK_CAP:
         raise ValueError(
             f"BVH depth {ds.meta.bvh2_depth} exceeds stack cap {STACK_CAP}")
     B = origin.shape[0]
     if B == 0 or ds.meta.n_tris == 0:
         return no_hits(t_max, B)
+    tables = [("bvh2_rows_pk", ds.bvh2_rows_pk, _F32),
+              ("tri_pack_pk", ds.tri_pack_pk, _F32)]
+    check_aligned(tables)
     t, best = launch_ray_kernel(
-        "tpu_rt_pair_walk",
-        [("bvh2_rows_pk", ds.bvh2_rows_pk, _F32),
-         ("tri_pack_pk", ds.tri_pack_pk, _F32)],
+        "tpu_rt_pair_walk", [*tables, ray_counter(origin.device)],
         origin, direction, t_min, t_max, active,
         [int(ds.meta.root_meta), int(ds.meta.n_tris), int(early_exit)],
         counts)

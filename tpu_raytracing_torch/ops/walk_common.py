@@ -3,7 +3,7 @@
 - `launch_ray_kernel` checks a ray batch on the card and launches one C
   entry of native_cuda (csrc/*.cu) on the current stream; `check_aligned`
   and `ray_counter` serve the walks that read 16-byte records on a
-  persistent grid (bvh8t, quad, skip-link).
+  persistent grid (bvh8t, quad, pair, skip-link).
 - `no_hits` is the answer of an empty batch or scene.
 - `leaf_records`, `leaf_first_min` and `pop` are the pieces of the plain
   PyTorch walks: a leaf's triangle records, its first-minimum hit, and a
