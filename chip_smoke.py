@@ -33,7 +33,7 @@ Phases (any failure exits nonzero and prints no result):
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel (launch counts reset
    just before, read just after). A copy of every ray batch the frame hands
-   the walk is kept for phase 11, and the frame for phase 9;
+   the walk is kept for phase 12, and the frame for phase 9;
 5. slice parity: two blocks of 4,096 Morton-order pixels (2 spp, depth 8),
    one of walls and floor and one mostly on the bunny, on cuda with the
    kernels against cpu with the plain versions;
@@ -98,7 +98,21 @@ Phases (any failure exits nonzero and prints no result):
    launch of its kernel on the same inputs (P3 also on small-id inputs;
    P2 and P1 in their outputs, stats and every visit's drained mask, and
    also on a second seeded input set whose drains vary);
-11. device times and the frame's traversal: every walk's kernel time alone
+11. multi-gpu: the distributed driver (tpu_raytracing_torch/parallel) with
+   a world of one rank through NCCL on a file:// store: render_distributed
+   of tests/test_parallel.py's 37x27 checkered_plane (2 spp, depth 2)
+   against render on the card; that frame split into 4 and 8 tiles, each
+   tile's shard run through the per-rank function one after the other and
+   assembled, against render (the card's own check that a lane does not
+   depend on its batch); render_accumulated_distributed interrupted after
+   its first chunk and resumed, against render_accumulated; the CLI's `full
+   --multichip` started alone (one rank), its EXR read back, against render;
+   then TPU_RT_DUMP_RAYS=1 on a 1,024-pixel block of the bench path (one
+   batch a bvh8t launch, the kinds, a save/load round trip) and the block's
+   time with the dump off and on. Every comparison is bit for bit, launch
+   counts reset just before and read just after each path. More than one
+   rank runs only on the CPU (tests/test_torch_parallel.py);
+12. device times and the frame's traversal: every walk's kernel time alone
    at the path's shape, from torch.profiler's kernel events; the frame's
    bounce-2 batches (closest-hit and its shadow rays) held against the plain
    walk and timed like the camera rays; then all of the frame's bvh8t
@@ -307,6 +321,19 @@ BENCH_ROW = "coated_diffuse_bunny_8spp"
 GATE_ROWS = (BENCH_ROW, *BEAUTY_SCENES, "checkered_plane",
              "environment_light", *AOV_SCENES)
 HARNESS_ROW = "checkered_plane"
+# the multi-gpu phase: tests/test_parallel.py's 37x27 checkered_plane
+# (999 pixels, so 4 and 8 tiles pad dead lanes) at 2 spp, depth 2, one
+# light sample; its accumulation at ACCUM_SPP in chunks of ACCUM_CHUNK; the
+# CLI's builtin checkered_plane at the same settings; the ray dump's block
+# of the bench path (Morton offset, pixels) at 1 spp: the walls and floor,
+# since a block on the coated bunny took 11.7-14.5 s a run on the card
+# (6.1-7.4 s on the walls). Every
+# comparison is bit for bit (np.array_equal) and rays_traced equal.
+SPLIT_TILES = (4, 8)
+ACCUM_SPP, ACCUM_CHUNK = 4, 2
+MULTI_CLI_FLAGS = ("--scene-name", "checkered_plane", "-s", "2", "-d", "2",
+                   "-l", "1")
+DUMP_BLOCK = (PARITY_BLOCKS["walls and floor"][0], 1024)
 P1_SLAB_OPS = 16 * 512 * SLAB_OPS
 P1_TRIP_OPS = 16 * 512 * MT_OPS
 SMS = 132
@@ -2302,6 +2329,250 @@ def check_p1(results, launches) -> tuple:
         P1_VARIED_ITERS, assess)
 
 
+def tiny_frame():
+    """checkered_plane with tests/test_parallel.py's 37x27 camera and
+    settings (the port's scene modules): (scene, settings)."""
+    from tpu_raytracing_torch.scene.camera import create_perspective_transform
+    from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+
+    ts = get_test_scene("checkered_plane")
+    scene = ts.scene_func()
+    cam = scene.camera
+    w, h = 37, 27
+    c2r = create_perspective_transform(
+        cam.far_clip, cam.near_clip, cam.camera_type.yfov, w, h)
+    cam.raster_width, cam.raster_height = w, h
+    cam.world_to_raster = cam.camera_to_world.invert().compose(c2r)
+    cam.raster_to_camera = c2r.invert()
+    settings = ts.settings_func()
+    settings.samples_per_pixel = 2
+    settings.light_sample_count = 1
+    settings.max_ray_depth = 2
+    return scene, settings
+
+
+def same_frame(label: str, got, want, card: str, extra: str = "") -> bool:
+    """Print one check line: got's beauty and rays against want's, bit for
+    bit."""
+    ok = (got.beauty is not None and got.beauty.shape == want.beauty.shape
+          and bool(np.array_equal(got.beauty, want.beauty))
+          and got.rays_traced == want.rays_traced > 0)
+    diff = (float(np.abs(got.beauty - want.beauty).max())
+            if got.beauty is not None
+            and got.beauty.shape == want.beauty.shape else float("nan"))
+    print(f"# multi-gpu, {label}: {got.rays_traced} rays vs "
+          f"{want.rays_traced}, max |difference| {diff:g}{extra} on {card}: "
+          f"{'ok (bit-equal)' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def phase_multigpu(ds_bench, settings, card: str) -> dict:
+    """The distributed driver and the ray dump on cuda:0 (phase 11): (a) a
+    world of one rank through NCCL on a file:// store, render_distributed
+    of the 37x27 frame against render; (b) that frame split into 4 and 8
+    tiles, each tile's shard through the per-rank function (shard_sum) one
+    after the other, assembled, against render; (c)
+    render_accumulated_distributed in chunks, interrupted after the first
+    and resumed, against render_accumulated; (d) the CLI's `full
+    --multichip` started alone (one rank), its EXR read back, against render
+    of the same frame; (e) TPU_RT_DUMP_RAYS=1 on a block of the bench path:
+    one batch a bvh8t launch, the kinds, a save/load round trip, and the
+    block's time with the dump off and on. The launch counts are reset just
+    before (a), (d) and (e) and read just after. More than one rank runs
+    only on the CPU (tests/test_torch_parallel.py): the card's machine has
+    one card, and NCCL refuses two ranks on one."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tpu_raytracing_torch import cli
+    from tpu_raytracing_torch.device import compile_scene
+    from tpu_raytracing_torch.integrator.accumulate import render_accumulated
+    from tpu_raytracing_torch.integrator.render import (
+        StaticSettings, _pixel_grid, render, render_beauty_chunk,
+    )
+    from tpu_raytracing_torch.ops.rng import SamplerConfig
+    from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
+    from tpu_raytracing_torch.parallel import (
+        init_render_group, make_render_mesh, render_accumulated_distributed,
+        render_distributed, shard_sum,
+    )
+    from tpu_raytracing_torch.parallel.mesh import _padded_grid
+    from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+    from tpu_raytracing_torch.settings import AovFlags
+    from tpu_raytracing_torch.utils import raydump
+    from tpu_raytracing_torch.utils.exr import read_exr
+
+    print(f"# multi-gpu: world size 1 on {card} (the machine has "
+          f"{torch.cuda.device_count()} card; runs of 2-8 ranks are gloo "
+          f"ranks on the CPU only, tests/test_torch_parallel.py)", flush=True)
+    scene, s = tiny_frame()
+    ds = compile_scene(scene)
+    ref = render(ds, s)
+    ok = True
+    launches = {}
+
+    # (b) the tile shards, one after the other in this process
+    cfg = SamplerConfig.from_settings(s.sampler, s.seed)
+    st = StaticSettings.from_settings(s)
+    w, h = ds.meta.width, ds.meta.height
+    for n_tiles in SPLIT_TILES:
+        px, py, act = _padded_grid(w, h, n_tiles)
+        parts, rays = [], 0
+        for tile in range(n_tiles):
+            part, r = shard_sum(ds, cfg, st, px, py, act, tile, n_tiles, 0,
+                                s.samples_per_pixel)
+            parts.append((part / s.samples_per_pixel).cpu().numpy())
+            rays += int(r)
+        got = dataclasses.replace(ref, beauty=np.concatenate(parts)[
+            :w * h].reshape(h, w, 3), rays_traced=rays)
+        ok &= same_frame(f"{n_tiles} tile shards assembled vs render", got,
+                         ref, card, f", {px.shape[0] - w * h} dead lanes")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        # (a) a world of one rank through NCCL
+        t0 = time.perf_counter()
+        init_render_group("cuda", f"file://{tmp}/store", 0, 1)
+        try:
+            mesh = make_render_mesh()
+            probe = torch.ones(1, device="cuda")
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            start_s = time.perf_counter() - t0
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render_distributed(ds, s, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches["render_distributed"] = launch_counts()["bvh8t"]
+            ok &= same_frame(
+                "render_distributed, NCCL world size 1, vs render", out, ref,
+                card, f"; NCCL start (group, mesh, first all_reduce) "
+                f"{start_s:.3f} s, render {wall:.3f} s, bvh8t launches "
+                f"{launches['render_distributed']}")
+            ok &= min(launches["render_distributed"].values()) > 0
+
+            # (c) accumulation, interrupted after the first chunk, resumed
+            sa = dataclasses.replace(s, samples_per_pixel=ACCUM_SPP)
+            want = render_accumulated(ds, sa, spp_chunk=ACCUM_CHUNK)
+            ck = os.path.join(tmp, "ck.npz")
+            seen = []
+
+            def interrupt(img, spp_done):
+                seen.append(spp_done)
+                raise KeyboardInterrupt
+
+            try:
+                render_accumulated_distributed(
+                    ds, sa, mesh=mesh, spp_chunk=ACCUM_CHUNK,
+                    checkpoint_path=ck, on_chunk=interrupt)
+            except KeyboardInterrupt:
+                pass
+            got = render_accumulated_distributed(
+                ds, sa, mesh=mesh, spp_chunk=ACCUM_CHUNK, checkpoint_path=ck,
+                on_chunk=lambda img, n: seen.append(n))
+            ok &= seen == [ACCUM_CHUNK, ACCUM_SPP]
+            ok &= same_frame(
+                f"render_accumulated_distributed, {ACCUM_SPP} spp in chunks "
+                f"of {ACCUM_CHUNK}, interrupted after the first and resumed, "
+                f"vs render_accumulated", got, want, card,
+                f"; chunks seen {seen}")
+        finally:
+            dist.destroy_process_group()
+
+        # (d) the CLI started alone: one rank
+        builtin = get_test_scene("checkered_plane")
+        sc = builtin.settings_func()
+        sc.samples_per_pixel, sc.max_ray_depth = 2, 2
+        sc.light_sample_count, sc.accumulate_bounces = 1, True
+        sc.outputs = AovFlags.BEAUTY
+        want = render(builtin.scene_func(), sc)
+        reset_launch_counts()
+        code, out = cli.run([*MULTI_CLI_FLAGS, "--multichip", "-o",
+                             "multigpu.exr", "full"])
+        launches["cli"] = launch_counts()["bvh8t"]
+        channels, _, _ = read_exr(os.path.join("scenes", "output",
+                                               "multigpu.exr"))
+        exr = np.stack([channels[c] for c in "RGB"], axis=-1)
+        ok &= code == 0 and not dist.is_initialized()
+        ok &= min(launches["cli"].values()) > 0
+        ok &= same_frame(
+            f"cli `{' '.join(MULTI_CLI_FLAGS)} --multichip full` "
+            f"(480x270), its EXR read back, vs render",
+            dataclasses.replace(out, beauty=exr), want, card,
+            f"; bvh8t launches {launches['cli']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) the ray dump on a block of the bench path
+    start, n_pix = DUMP_BLOCK
+    sd = dataclasses.replace(settings, samples_per_pixel=1)
+    cfg = SamplerConfig.from_settings(sd.sampler, sd.seed)
+    st = StaticSettings.from_settings(sd)
+    px, py, _ = _pixel_grid(ds_bench.meta.width, ds_bench.meta.height)
+    sel = slice(start, start + n_pix)
+    tpx = torch.from_numpy(px[sel].astype(np.int64)).cuda()
+    tpy = torch.from_numpy(py[sel].astype(np.int64)).cuda()
+    act = torch.ones(n_pix, dtype=torch.bool, device="cuda")
+
+    def block(dump: bool) -> float:
+        os.environ["TPU_RT_DUMP_RAYS"] = "1" if dump else "0"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r, _ = render_beauty_chunk(ds_bench, cfg, st, tpx, tpy, act)
+            r.sum().item()
+            return time.perf_counter() - t0
+        finally:
+            os.environ.pop("TPU_RT_DUMP_RAYS")
+
+    raydump.clear()
+    try:  # the kernels and the block's ops are warm from the phases before
+        times = {False: [], True: []}
+        for dump in (False, True, True, False):
+            raydump.clear()
+            reset_launch_counts()
+            times[dump].append(block(dump))
+            if not dump:
+                ok &= not raydump.BATCHES
+                continue
+            counts = launch_counts()["bvh8t"]
+            batches = list(raydump.BATCHES)
+            kinds = [b["kind"] for b in batches]
+            ok &= (len(batches) == sum(counts.values())
+                   and kinds.count(0) == counts["closest_hit"] > 0
+                   and kinds.count(1) == counts["any_hit"] > 0
+                   and kinds[0] == 0 and batches[0]["o"].shape == (n_pix, 3))
+        launches["dump"] = counts
+        path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dump_"),
+                            "rays.npz")
+        raydump.clear()
+        raydump.BATCHES.extend(batches)  # the last dumped run's
+        raydump.save(path)
+        loaded = raydump.load(path)
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        round_trip = len(batches) > 0 and len(loaded) == len(batches) and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(loaded, batches)
+            for k in b)
+        ok &= round_trip
+    finally:
+        raydump.clear()
+    print(f"# multi-gpu, ray dump ({n_pix} pixels of the bench path at "
+          f"{start}, 1 spp): {len(batches)} batches, kinds "
+          f"{kinds.count(0)} closest-hit + {kinds.count(1)} any-hit = bvh8t "
+          f"launches {counts}; save/load round trip "
+          f"{'bit-equal' if round_trip else 'FAIL'}; block wall dump off "
+          f"{[round(t, 4) for t in times[False]]} s, on "
+          f"{[round(t, 4) for t in times[True]]} s (off, on, on, off) on "
+          f"{card}", flush=True)
+    if not ok:
+        raise AssertionError("multi-gpu phase failed a check")
+    return launches
+
+
 def phase_device(ds, settings, stats: dict, frame: list) -> dict:
     """Device times at the path's shape into `stats`; the frame's bounce-2
     batches held and timed; the frame's traversal replayed, sample 0 by
@@ -2379,14 +2650,17 @@ def phase_device(ds, settings, stats: dict, frame: list) -> dict:
 
 
 def kernel_entries(stats: dict, frame: dict, switch: dict,
-                   traversal: dict, scenes: dict, cli: dict) -> list:
+                   traversal: dict, scenes: dict, cli: dict,
+                   multigpu: dict) -> list:
     """The {"kernels": [...]} entries. bvh8t's launches are the full
     frame's (phase 4), the other walks' their switch frame's (phase 6, both
     modes); times and bounds are at the path's shape of the entry's mode
     (closest-hit for the walks, whose any-hit numbers ride along). bvh8t's
     entries also carry their mode's bounce-2 batch and the frame's
-    traversal in all (phase 11), their launches in each builtin scene's
-    frame (phase 7) and in the cli frame (phase 8); the any-hit entry also
+    traversal in all (phase 12), their launches in each builtin scene's
+    frame (phase 7), in the cli frame (phase 8) and on the multi-gpu paths
+    (phase 11: render_distributed, the cli, the dumped block); the any-hit
+    entry also
     the emissive frame's area-light shadow batch (phase 7). Then one entry
     a mode for the bvh8t kernel on a BLAS: the cli frame's bounce-1 batch
     of instance 0, with the frame's launches over a BLAS."""
@@ -2409,6 +2683,9 @@ def kernel_entries(stats: dict, frame: dict, switch: dict,
                 if name in BEAUTY_SCENES or name in TEXTURE_FRAMES}
             entry["scene_launches"]["cli_instanced"] = cli["launches"][
                 main_mode]
+            for path, counts in multigpu.items():
+                entry["scene_launches"]["multi_gpu_" + path] = counts[
+                    main_mode]
             if main_mode == "any_hit":
                 entry["area_shadow_batch"] = scenes["area_shadow"]
         if len(modes) > 1:
@@ -2487,6 +2764,7 @@ def main() -> int:
         ("cli and scene files", lambda: phase_cli(card)),
         ("rttest gate", lambda: phase_rttest(frames, card)),
         ("probes", lambda: phase_probes(card)),
+        ("multi-gpu", lambda: phase_multigpu(ds, settings, card)),
         ("device times", lambda: phase_device(
             ds, settings, results["kernel vs plain"], batches)),
     )
@@ -2505,7 +2783,8 @@ def main() -> int:
                              results["full frame"], results["kernel switch"],
                              results["device times"],
                              results["builtin scenes"],
-                             results["cli and scene files"])
+                             results["cli and scene files"],
+                             results["multi-gpu"])
     kernels += results["probes"]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -108,13 +108,32 @@ def test_checkpointed_cli_matches_oneshot(in_tmp):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--multichip"], "12. Multi-GPU"),
-    (["--spp-shards", "2"], "12. Multi-GPU"),
-    (["-i"], "13. Frontends"),
+    (["--multichip"], ("render_distributed", 1)),
+    (["--multichip", "--spp-shards", "2"], ("render_distributed", 2)),
+    (["-i"], ("tui.run", None)),
 ])
-def test_unported_flags_raise(in_tmp, flags, item):
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        cli.main(["--scene-name", "sphere", *flags, "full"])
+def test_unported_flags_raise(in_tmp, monkeypatch, flags, item):
+    """The flags that raised NotImplementedError until the port had
+    parallel/ and tui.py now reach them: --multichip the distributed render
+    (with --spp-shards as its spp axis), -i the settings form."""
+    import tpu_raytracing_torch.parallel as parallel
+    import tpu_raytracing_torch.tui as tui
+    from tpu_raytracing_torch.settings import RenderOutput
+
+    reached = []
+
+    def fake_render(scene, settings, n_spp_shards=1, chunk_pixels=None):
+        reached.append(("render_distributed", n_spp_shards))
+        return RenderOutput(width=400, height=400)
+
+    def fake_form(args):
+        reached.append(("tui.run", None))
+
+    monkeypatch.setattr(parallel, "render_distributed", fake_render)
+    monkeypatch.setattr(tui, "run", fake_form)
+    assert cli.main(["--scene-name", "sphere", "--backend", "cpu", *flags,
+                     "full", "--aov", "n"]) == 0
+    assert reached == [item]
 
 
 def test_cuda_backend_is_the_default(in_tmp):

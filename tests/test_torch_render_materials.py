@@ -22,6 +22,9 @@ within 2e-4), and at least MIN_CLOSE of the pixels within rtol 1e-3, set
 
 out_of_focus_sphere is diffuse only: every pixel agrees within rtol 1e-5
 (measured worst 3.1e-7), as the bunny's walls do.
+
+With accumulate_bounces=False (metal; out_of_focus_sphere at depth 1) the
+same limits hold and rays_traced is equal.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -54,10 +57,15 @@ BLOCKS = {
 }
 
 
-@pytest.mark.parametrize("name", list(BLOCKS))
-def test_sphere_block_matches_jax(name):
+def _block_against_jax(name: str, accumulate_bounces: bool = True,
+                       max_ray_depth: int | None = None) -> tuple:
+    """The block of `name` through both packages at the module's limits;
+    returns (port rays, JAX rays)."""
     (x0, y0), min_close = BLOCKS[name]
     s = get_test_scene(name).settings_func()
+    s.accumulate_bounces = accumulate_bounces
+    if max_ray_depth is not None:
+        s.max_ray_depth = max_ray_depth
     if name != "out_of_focus_sphere":
         s.samples_per_pixel = 2
     jds = jax_compile_scene(jax_test_scene(name).scene_func())
@@ -86,3 +94,23 @@ def test_sphere_block_matches_jax(name):
     assert close.mean() >= min_close, close.mean()
     if name == "out_of_focus_sphere":
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    return n_got, n_want
+
+
+@pytest.mark.parametrize("name", list(BLOCKS))
+def test_sphere_block_matches_jax(name):
+    _block_against_jax(name)
+
+
+@pytest.mark.parametrize("name,depth", [("metal", None),
+                                        ("out_of_focus_sphere", 1)])
+def test_sphere_block_without_accumulated_bounces_matches_jax(name, depth):
+    """accumulate_bounces=False (only the light of the bounce at the
+    maximum depth is added; the CLI always sets it True) against JAX at the
+    same limits, with rays_traced equal. out_of_focus_sphere's paths leave
+    its lone sphere for the sky after one bounce, so at its builtin depth 8
+    the block is black in both packages; at depth 1 it is the primary
+    hits' direct light."""
+    n_got, n_want = _block_against_jax(name, accumulate_bounces=False,
+                                       max_ray_depth=depth)
+    assert n_got == n_want

@@ -81,9 +81,10 @@ def _scenes(name):
     return port, jax_, get_test_scene(name).settings_func()
 
 
-def _black_primary_lanes(tds, cfg, st, px, py) -> int:
-    """Primary lanes whose albedo the port evaluates to exactly 0."""
-    stream = make_stream(px, py, 0)
+def _black_primary_lanes(tds, cfg, st, px, py, sample: int = 0) -> int:
+    """Primary lanes of `sample` whose albedo the port evaluates to exactly
+    0."""
+    stream = make_stream(px, py, sample)
     o, d, diff, _ = generate_rays(tds, px, py, cfg, stream,
                                   st.samples_per_pixel, jitter=True)
     n = px.shape[0]

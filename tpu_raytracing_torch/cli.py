@@ -13,20 +13,31 @@ the beauty exposure 1000. Outputs are written under ``scenes/output/``.
 `--backend cuda` (the default) renders on the card and raises without
 one; `--backend cpu` runs the plain versions on the host. `--profile DIR`
 writes a `torch.profiler` Chrome trace of the render to DIR/trace.json.
-`--multichip`, `--spp-shards` and `-i` are not ported yet (ROADMAP.md
-items 12 and 13) and raise. `-t` is accepted for the harness's sake and
-has no effect.
+`-i` opens the settings form (tui.py) first. `-t` is accepted for the
+harness's sake and has no effect.
+
+`--multichip` renders the beauty over a (tiles, `--spp-shards`) mesh of
+ranks (parallel/mesh.py; with `--checkpoint`, accumulated in chunks),
+and the AOVs on rank 0's device alone. Under torchrun (RANK and WORLD_SIZE
+set) the ranks are torchrun's; started alone, one rank a visible card
+(spawned, on a file store in a temp dir), or one gloo rank with `--backend
+cpu`. Rank 0 writes the outputs.
 
     python -m tpu_raytracing_torch.cli --scene-name sphere -s 2 full
+    torchrun --nproc-per-node 4 -m tpu_raytracing_torch.cli \
+        --scene-name checkered_plane --backend cpu --multichip full
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import logging
 import math
+import os
 import sys
+import tempfile
 from pathlib import Path
 
 log = logging.getLogger("tpu_raytracing_torch")
@@ -42,7 +53,7 @@ def _add_common(p: argparse.ArgumentParser, suppress: bool) -> None:
 
     p.add_argument(
         "-i", "--interactive", action="store_true", default=d(False),
-        help="Interactive TUI (not ported: ROADMAP.md item 13)",
+        help="Interactive TUI",
     )
     g = p.add_mutually_exclusive_group()
     g.add_argument(
@@ -94,11 +105,11 @@ def _add_common(p: argparse.ArgumentParser, suppress: bool) -> None:
     )
     p.add_argument(
         "--multichip", action="store_true", default=d(False),
-        help="Shard over several cards (not ported: ROADMAP.md item 12)",
+        help="Shard the beauty over a mesh of ranks (one a card)",
     )
     p.add_argument(
         "--spp-shards", type=int, default=d(1),
-        help="spp axis of the device mesh (not ported: ROADMAP.md item 12)",
+        help="spp axis of the device mesh (with --multichip)",
     )
     p.add_argument(
         "--spp-chunk", type=int, default=d(32),
@@ -254,18 +265,94 @@ def _save_to_exr(out, flags, output_path: Path) -> None:
     write_exr(output_path, channels)
 
 
+@contextlib.contextmanager
+def _process_group(backend: str):
+    """The ranks' process group: the caller's where one is running (a
+    spawned rank's, or a program's own), torchrun's where RANK and
+    WORLD_SIZE are set, else a world of one rank on a file store. A group
+    started here is destroyed on the way out."""
+    import torch.distributed as dist
+
+    from .parallel import init_render_group
+
+    if dist.is_initialized():
+        yield
+        return
+    with tempfile.TemporaryDirectory(prefix="tpu_rt_group_") as tmp:
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            init_render_group(backend)
+        else:
+            init_render_group(backend, f"file://{tmp}/store", 0, 1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _rank_main(rank: int, args, init_method: str, world: int) -> None:
+    """One spawned rank: join the group, run the parsed command line,
+    leave."""
+    import torch.distributed as dist
+
+    from .parallel import init_render_group
+
+    init_render_group("cuda", init_method, rank, world)
+    try:
+        code = _run(args)[0]
+    finally:
+        dist.destroy_process_group()
+    if code:
+        raise SystemExit(code)
+
+
+def _spawn_ranks(args, world: int) -> None:
+    """Started alone with several cards: one rank a card, each running the
+    command line; a rank that fails stops the others and raises here."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="tpu_rt_group_") as tmp:
+        mp.spawn(_rank_main, args=(args, f"file://{tmp}/store", world),
+                 nprocs=world, join=True)
+
+
+def _render_distributed(scene, settings, args):
+    """The beauty over every rank (--multichip): the whole frame on rank 0,
+    None on the others."""
+    import torch.distributed as dist
+
+    from .parallel import render_accumulated_distributed, render_distributed
+
+    with _process_group(args.backend):
+        if args.checkpoint is None:
+            out = render_distributed(
+                scene, settings, n_spp_shards=args.spp_shards,
+                chunk_pixels=args.chunk_pixels)
+        else:
+            out = render_accumulated_distributed(
+                scene, settings, n_spp_shards=args.spp_shards,
+                spp_chunk=args.spp_chunk, checkpoint_path=args.checkpoint,
+                chunk_pixels=args.chunk_pixels)
+        return out if dist.get_rank() == 0 else None
+
+
 def _render(scene, settings, args, device):
+    """The frame, or None on a rank other than 0."""
     from .integrator.render import render
     from .settings import AovFlags
 
-    if args.checkpoint is None:
+    if args.multichip:
+        out = _render_distributed(scene, settings, args)
+        if out is None:
+            return None
+    elif args.checkpoint is None:
         return render(scene, settings, device, chunk_pixels=args.chunk_pixels)
-    from .integrator.accumulate import render_accumulated
+    else:
+        from .integrator.accumulate import render_accumulated
 
-    out = render_accumulated(
-        scene, settings, spp_chunk=args.spp_chunk,
-        checkpoint_path=args.checkpoint, chunk_pixels=args.chunk_pixels,
-        device=device)
+        out = render_accumulated(
+            scene, settings, spp_chunk=args.spp_chunk,
+            checkpoint_path=args.checkpoint, chunk_pixels=args.chunk_pixels,
+            device=device)
     if settings.outputs & ~AovFlags.BEAUTY:
         aovs = copy.copy(settings)
         aovs.outputs = settings.outputs & ~AovFlags.BEAUTY
@@ -289,17 +376,31 @@ def run(argv=None):
         print(json.dumps([s.name for s in test_scenes.all_test_scenes()]))
         return 0, None
     if args.interactive:
-        raise NotImplementedError(
-            "-i/--interactive is outside the ported slice "
-            "(ROADMAP.md: 13. Frontends)")
-    if args.multichip or args.spp_shards != 1:
-        raise NotImplementedError(
-            "--multichip/--spp-shards are outside the ported slice "
-            "(ROADMAP.md: 12. Multi-GPU)")
+        from . import tui
+
+        new_args = tui.run(args)
+        if new_args is None:
+            print("Render cancelled.")
+            return 0, None
+        args = new_args
+    return _run(args)
+
+
+def _run(args):
+    """run() after parsing: (exit code, the RenderOutput it wrote or
+    None)."""
     if args.scene_path is None and args.scene_name is None:
         print("error: either --scene-path or --scene-name is required",
               file=sys.stderr)
         return 1, None
+    if (args.multichip and args.command != "pixel" and args.backend == "cuda"
+            and "RANK" not in os.environ):
+        import torch
+        import torch.distributed as dist
+
+        if not dist.is_initialized() and torch.cuda.device_count() > 1:
+            _spawn_ranks(args, torch.cuda.device_count())
+            return 0, None
 
     from .settings import AovFlags
 
@@ -341,6 +442,8 @@ def run(argv=None):
         log.info("profiler trace written to %s", trace)
     else:
         out = _render(scene, settings, args, device)
+    if out is None:  # a rank other than 0
+        return 0, None
 
     output_file = Path("scenes/output") / (args.output or Path("output.exr"))
     save_render_output(out, settings.outputs, args.output_format, output_file)

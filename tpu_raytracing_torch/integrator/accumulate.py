@@ -33,8 +33,11 @@ from .render import (
 log = logging.getLogger("tpu_raytracing_torch")
 
 
-def _settings_fingerprint(settings: RaytracerSettings, ds: DeviceScene) -> str:
-    """The JAX package's fingerprint of what a checkpoint's sums depend on."""
+def _settings_fingerprint(settings: RaytracerSettings, ds: DeviceScene,
+                          layout: str = "morton1") -> str:
+    """The JAX package's fingerprint of what a checkpoint's sums depend on;
+    `layout` names the accumulator's pixel order ("raster-dist1" for the
+    distributed driver's)."""
     blob = json.dumps(
         {
             "spp": settings.samples_per_pixel,
@@ -45,11 +48,39 @@ def _settings_fingerprint(settings: RaytracerSettings, ds: DeviceScene) -> str:
             "accumulate": settings.accumulate_bounces,
             "wh": [ds.meta.width, ds.meta.height],
             "tris": ds.meta.n_tris,
-            "layout": "morton1",  # accumulator pixel ordering
+            "layout": layout,
         },
         sort_keys=True,
     )
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def read_checkpoint(path: Optional[Path], fingerprint: str, spp_chunk: int,
+                    n: int) -> tuple:
+    """(spp done, rays, accumulator (n, 3) f32) from the checkpoint at
+    `path` where its fingerprint and chunk size match, else a fresh
+    start."""
+    fresh = 0, 0, np.zeros((n, 3), np.float32)
+    if path is None or not path.exists():
+        return fresh
+    with np.load(path, allow_pickle=False) as ck:
+        if (str(ck["fingerprint"]) == fingerprint
+                and int(ck["spp_chunk"]) == spp_chunk):
+            log.info("resuming from checkpoint: %d spp done",
+                     int(ck["spp_done"]))
+            return int(ck["spp_done"]), int(ck["rays"]), ck["accum"]
+    log.warning("checkpoint does not match settings; starting fresh")
+    return fresh
+
+
+def write_checkpoint(path: Path, accum, spp_done: int, rays: int,
+                     fingerprint: str, spp_chunk: int) -> None:
+    """Write the checkpoint beside `path`, then move it over `path`, so an
+    interrupted write leaves the previous one."""
+    tmp = path.with_suffix(".tmp.npz")
+    np.savez(tmp, accum=accum, spp_done=spp_done, rays=rays,
+             fingerprint=fingerprint, spp_chunk=spp_chunk)
+    tmp.replace(path)
 
 
 def render_accumulated(
@@ -75,23 +106,10 @@ def render_accumulated(
     spp_chunk = min(spp_chunk, total_spp)
     fingerprint = _settings_fingerprint(settings, ds)
 
-    accum = np.zeros((height * width, 3), np.float32)
-    rays_total = 0
-    spp_done = 0
     if checkpoint_path is not None:
         checkpoint_path = Path(checkpoint_path)
-        if checkpoint_path.exists():
-            with np.load(checkpoint_path, allow_pickle=False) as ck:
-                if (str(ck["fingerprint"]) == fingerprint
-                        and int(ck["spp_chunk"]) == spp_chunk):
-                    accum = ck["accum"]
-                    spp_done = int(ck["spp_done"])
-                    rays_total = int(ck["rays"])
-                    log.info("resuming from checkpoint: %d/%d spp",
-                             spp_done, total_spp)
-                else:
-                    log.warning(
-                        "checkpoint does not match settings; starting fresh")
+    spp_done, rays_total, accum = read_checkpoint(
+        checkpoint_path, fingerprint, spp_chunk, height * width)
 
     px, py, unmorton = _pixel_grid(width, height)
     chunk = chunk_pixels or default_chunk(device)
@@ -111,10 +129,8 @@ def render_accumulated(
         log.info("accumulated %d/%d spp (%.2fs)", spp_done, total_spp,
                  time.perf_counter() - t0)
         if checkpoint_path is not None:
-            tmp = checkpoint_path.with_suffix(".tmp.npz")
-            np.savez(tmp, accum=accum, spp_done=spp_done, rays=rays_total,
-                     fingerprint=fingerprint, spp_chunk=spp_chunk)
-            tmp.replace(checkpoint_path)
+            write_checkpoint(checkpoint_path, accum, spp_done, rays_total,
+                             fingerprint, spp_chunk)
         if on_chunk is not None:
             on_chunk((accum[unmorton] / np.float32(spp_done)).reshape(
                 height, width, 3), spp_done)

@@ -341,9 +341,10 @@ def _pixel_grid(width: int, height: int):
     return px[order], py[order], inverse
 
 
-def _run_chunked(fn, px, py, device, chunk):
+def _run_chunked(fn, px, py, device, chunk, active=None):
     """Yield (size, fn(px, py, active)) over fixed-size pixel chunks; the
-    tail chunk is padded with inactive lanes (traced dead, not counted)."""
+    tail chunk is padded with inactive lanes (traced dead, not counted), as
+    are the lanes where `active` (a bool array like px) is false."""
     n = px.shape[0]
     chunk = min(chunk, n)
     for start in range(0, n, chunk):
@@ -351,6 +352,8 @@ def _run_chunked(fn, px, py, device, chunk):
         cpy = py[start:start + chunk].astype(np.int64)
         size = cpx.shape[0]
         act = np.arange(chunk) < size
+        if active is not None:
+            act[:size] &= active[start:start + chunk]
         pad = np.zeros(chunk - size, np.int64)
         cpx, cpy = np.concatenate([cpx, pad]), np.concatenate([cpy, pad])
         yield size, fn(torch.from_numpy(cpx).to(device),

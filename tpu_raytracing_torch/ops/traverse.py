@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..device.scene_buffers import DeviceScene
+from ..utils import raydump
 from .intersect import ray_aabb, ray_sphere, ray_triangle, sphere_hit_geom
 from .linalg import (
     apply_point, apply_vector, apply_vector_transposed, cross, normalize,
@@ -76,6 +77,7 @@ def intersect_scene(ds: DeviceScene, origin, direction, t_min, t_max,
     best = torch.full((B,), -1, dtype=torch.int32, device=dev)
     if active is None:
         active = torch.ones(B, dtype=torch.bool, device=dev)
+    raydump.emit(early_exit, origin, direction, t_min, t_best, active)
     n_tris = ds.meta.n_tris
     if ds.meta.n_spheres:
         st, sidx = _intersect_spheres(ds, origin, direction, t_min, t_best)
