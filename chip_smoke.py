@@ -97,7 +97,10 @@ Phases (any failure exits nonzero and prints no result):
    version at the same counts, timed once, held bit for bit against one
    launch of its kernel on the same inputs (P3 also on small-id inputs;
    P2 and P1 in their outputs, stats and every visit's drained mask, and
-   also on a second seeded input set whose drains vary);
+   also on a second seeded input set whose drains vary), with ptxas's
+   registers and spills of each probe instantiation, the share of P3's
+   tests that K3's prefilter keeps, and P2's and P3's warp instructions
+   issued a clock from their loops' SASS;
 11. multi-gpu: the distributed driver (tpu_raytracing_torch/parallel) with
    a world of one rank through NCCL on a file:// store: render_distributed
    of tests/test_parallel.py's 37x27 checkered_plane (2 spp, depth 2)
@@ -137,6 +140,7 @@ import subprocess
 import sys
 import time
 import traceback
+from collections import Counter
 
 import numpy as np
 import torch
@@ -2064,10 +2068,11 @@ def plain_run(fn) -> tuple:
     return out, start.elapsed_time(end)
 
 
-def phase_probes(card: str) -> list:
+def phase_probes(card: str, ptxas_log: str) -> list:
     """The probes' mains (launches counted), then at the same counts each
     configuration's plain version (timed) against one kernel launch, bit for
-    bit, and the bounds; returns the four {"kernels": ...} entries."""
+    bit, and the bounds; returns the four {"kernels": ...} entries. Prints
+    ptxas's report of each probe instantiation first."""
     from tpu_raytracing_torch.probes import PROBES, reset_launch_counts
     from tpu_raytracing_torch.probes import bf16_vpu as P4
     from tpu_raytracing_torch.probes import iter_cost as P3
@@ -2075,21 +2080,33 @@ def phase_probes(card: str) -> list:
     from tpu_raytracing_torch.probes import walk_cost as P1
 
     print(f"# probes on {card}", flush=True)
+    for name, _, _ in PROBE_KERNELS:
+        for r in ptxas_report(ptxas_log, name):
+            args = re.search(r"I((?:L[ib]\d+E)+)E", r["entry"])
+            print(f"# ptxas {name}<"
+                  + ", ".join(re.findall(r"L[ib](\d+)E", args.group(1))
+                              if args else []) + f">: {r.get('registers')} "
+                  f"registers, {r.get('spill_stores')} / "
+                  f"{r.get('spill_loads')} bytes spill stores / loads, "
+                  f"{r.get('stack_frame')} bytes stack frame", flush=True)
     reset_launch_counts()
     torch.cuda.synchronize()
     p3, p4 = P3.main([]), P4.main([])
     p2, p1 = P2.main([]), P1.main(["--iters", str(P1_ITERS)])
     torch.cuda.synchronize()
     launches = {name: dict(fn.launches) for name, fn in PROBES.items()}
+    clock = max_clock_hz()
     ok = True
     p3_configs = []
     for config, res in zip(P3.CONFIGS, p3):
         R, err, n = config[0], 0.0, res["iters"]
         for small_ids in (False, True):
             ins = P3.script_inputs("cuda", small_ids)
-            want, ms = plain_run(lambda: P3.iter_cost_plain(*ins, *config, n))
+            trace = []
+            want, ms = plain_run(lambda: P3.iter_cost_plain(
+                *ins, *config, n, trace=trace))
             if not small_ids:
-                plain_ms = ms
+                plain_ms, script_ins, script_trace = ms, ins, trace
             equal, e, report = bits_compare(P3.iter_cost(*ins, *config, n),
                                             want)
             ok, err = ok and equal, max(err, e)
@@ -2097,18 +2114,20 @@ def phase_probes(card: str) -> list:
                   f"{'small ids' if small_ids else 'script inputs'}, {n} "
                   f"iterations: {report} (bit-equal required): "
                   f"{'ok' if equal else 'FAIL'}", flush=True)
+        # needed = written: every test's 44 operations (K3's prefilter adds
+        # 8 to each and saves the divides' instructions, not operations)
         ops = res["iters_run"] * R * P3.LANE * P3.LG * MT_OPS
         nbytes = 4 * (P3.NB * P3.LG + 6 * P3.RMAX + P3.RMAX + R) * P3.LANE
         bound_ms, bound_by = bound_entry(ops, nbytes, FP32_OPS_PER_S)
+        issue = p3_issue(config, res, script_ins, script_trace, clock)
         p3_configs.append(dict(
             res, launches=launches["probe_iter_cost"][res["config"]],
             max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, share=bound_ms / res["ms"],
-            sm_share=bound_ms / res["ms"] * SMS))
+            sm_share=bound_ms / res["ms"] * SMS, **issue))
     # one convention for both types, an FMA counted as two operations: the
     # datasheet's fp32 rate, and bf16x2 (no datasheet rate) derived as the
     # fp32 lanes x 2 elements x 2 x the max clock
-    clock = max_clock_hz()
     bf16_ops_per_s = SMS * FP32_LANES * 2 * 2 * clock
     print(f"# probes: max SM clock {clock / 1e6:.0f} MHz; fp32 peak "
           f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s (datasheet, an FMA counted as "
@@ -2144,7 +2163,8 @@ def phase_probes(card: str) -> list:
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             peak_ops_per_s=peak, share=bound_ms / res["ms"],
             sm_share=bound_ms / res["ms"] * SMS, issue_per_clock=issue))
-    eq2, varied2, p2_configs = check_p2(p2, launches["probe_slab_cost"])
+    eq2, varied2, p2_configs = check_p2(p2, launches["probe_slab_cost"],
+                                        clock)
     eq1, varied1, p1_configs = check_p1(p1, launches["probe_walk_cost"])
     ok = ok and eq2 and eq1
     entries = []
@@ -2174,6 +2194,90 @@ def phase_probes(card: str) -> list:
                              "the drains do not vary, or the share of finite "
                              "outputs is not what the level gives")
     return entries
+
+
+def p3_issue(config, res, ins, trace, clock: float) -> dict:
+    """P3's warp instructions a clock at the max clock, from its loop's
+    SASS count: each iteration's instructions outside the second pass's
+    loop for every warp, plus that loop's instructions for each of its warp
+    trips, which the prefilter's plain twin counts on this run's iterations
+    (iter_cost.deferred_trips); and the share of the tests the prefilter
+    keeps."""
+    from tpu_raytracing_torch.probes import iter_cost as P3
+
+    R, S = config[0], P3.RAYS_PER_THREAD
+    tests = len(trace) * R * P3.LANE * P3.LG
+    kept = sum(n * int(P3.kept(*ins, R, *key).sum())
+               for key, n in Counter(trace).items())
+    out = dict(kept_share=kept / tests, issue_per_clock=None,
+               deferred_warp_trips=None)
+    print(f"# probe_iter_cost {res['config']}: the prefilter keeps {kept} of "
+          f"{tests} tests ({kept / tests * 100:.2f}%)", flush=True)
+    if not res["sass"]:
+        return out
+    outer = sum(res["sass"].values())
+    inner = sum((res["sass_inner"] or {}).values())
+    trips = P3.deferred_trips(*ins, R, S, trace) if inner else 0
+    warps = R * P3.LANE // S // 32
+    issued = res["iters_run"] * warps * (outer - inner) + trips * inner
+    issue = issued / (res["ms"] * 1e-3 * clock)
+    print(f"# probe_iter_cost {res['config']}: {S} rays a thread, {warps} "
+          f"warps; loop {outer} SASS instructions ({inner} in the second "
+          f"pass's loop, {trips} warp trips of it, "
+          f"{trips / max(res['iters_run'] * warps, 1):.2f} a warp an "
+          f"iteration); {issue:.3f} warp instructions a clock at the max "
+          f"clock ({issue / 4 * 100:.1f}% of one SM's 4 issue slots)",
+          flush=True)
+    out.update(issue_per_clock=issue, deferred_warp_trips=trips)
+    return out
+
+
+# P2's parts of a visit that only some warps run: floor's compare (128
+# threads), row0's interval slabs (16 threads of warp 0); the SASS region
+# a forward branch skips that holds the opcode, and the warps that run it
+P2_PARTIAL = {"floor": ("FSETP.GT.AND", 4), "row0": ("FMUL", 1)}
+
+
+def p2_issue(res, seq, clock: float) -> float | None:
+    """P2's warp instructions a clock at the max clock, from its visit
+    loop's SASS count for every warp of the block, this run's visits
+    (the drains `seq`); mxu's product loop counted for each of its trips
+    (its FMULs a trip against the 16 x 128 x MXU_COLS products a thread
+    does a visit); the ring's refill and wait only on the visits that
+    enter a block, and P2_PARTIAL's parts only for the warps that run
+    them."""
+    from tpu_raytracing_torch.probes import common
+    from tpu_raytracing_torch.probes import slab_cost as P2
+
+    if not res["sass"]:
+        return None
+    v = res["variant"]
+    warps = P2.THREADS[v] // 32
+    per_visit = sum(res["sass"].values())
+    inner = res["sass_inner"] or {}
+    if v == "mxu" and inner.get("FMUL"):
+        trips = 16 * 128 * P2.MXU_COLS / inner["FMUL"]
+        per_visit += sum(inner.values()) * (trips - 1)
+    issued = len(seq) * warps * per_visit
+    regions = common.skipped_regions(
+        f"probe_slab_costILi{P2.KERNEL_OF[v]}E")
+    size = lambda r: sum(r.values())  # noqa: E731
+    ring = [r for r in regions if any(o.startswith("SYNCS.PHASECHK")
+                                      for o in r)]
+    if ring:
+        q, blocks = 0, set()
+        for m in seq:
+            blocks.add(q // 16)
+            q += 1 + (m & 1)
+        issued -= (len(seq) - len(blocks)) * warps * size(max(ring, key=size))
+    if v in P2_PARTIAL:
+        op, part_warps = P2_PARTIAL[v]
+        part = [r for r in regions if op in r
+                and not any(o.startswith("SYNCS") for o in r)]
+        if part:
+            issued -= len(seq) * (warps - part_warps) * size(max(part,
+                                                                 key=size))
+    return issued / (res["ms"] * 1e-3 * clock)
 
 
 def check_probe_run(name, case, kernel, plain, n: int, label: str) -> tuple:
@@ -2257,8 +2361,9 @@ def check_drain_probe(name, key, results, launches, kernel, plain, inputs,
     return equal, shown, configs
 
 
-def check_p2(results, launches) -> tuple:
-    """P2 through check_drain_probe; bounds from this run's visits."""
+def check_p2(results, launches, clock: float) -> tuple:
+    """P2 through check_drain_probe; bounds from this run's visits, and the
+    issue rate from its SASS."""
     from tpu_raytracing_torch.probes import slab_cost as P2
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2281,9 +2386,13 @@ def check_p2(results, launches) -> tuple:
         need, written = P2_OPS[v]
         b = probe_bound(len(seq) * need, len(seq) * written, nbytes,
                         res["ms"])
+        issue = p2_issue(res, seq, clock)
+        note = "" if issue is None else (
+            f", {issue:.3f} warp instructions a clock at the max clock "
+            f"({issue / 4 * 100:.1f}% of one SM's 4 issue slots)")
         return b, (f"{len(seq)} visits run, {res['ns_per_visit_run']:.1f} ns "
                    f"each, {need} operations a visit needed, {written} "
-                   f"written"), {}, True
+                   f"written{note}"), dict(issue_per_clock=issue), True
 
     return check_drain_probe(
         "probe_slab_cost", "variant", results, launches, P2.slab_cost,
@@ -2763,7 +2872,7 @@ def main() -> int:
         ("builtin scenes", lambda: phase_builtin_scenes(card, frames)),
         ("cli and scene files", lambda: phase_cli(card)),
         ("rttest gate", lambda: phase_rttest(frames, card)),
-        ("probes", lambda: phase_probes(card)),
+        ("probes", lambda: phase_probes(card, log)),
         ("multi-gpu", lambda: phase_multigpu(ds, settings, card)),
         ("device times", lambda: phase_device(
             ds, settings, results["kernel vs plain"], batches)),

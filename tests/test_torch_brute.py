@@ -6,7 +6,8 @@
   interpret mode (selected with TPU_RT_BRUTE_GROUPS, as
   tests/test_torch_walks.py selects it): the same winners, and the
   winners the tie rule names.
-- The kernel's exact prefilter, written here as `prefilter_rejects`: it
+- The kernel's exact prefilter, whose plain twin is
+  `ops/intersect.py::prefilter_rejects` (P3's prefilter too): it
   never rejects a row that ray_triangle_edges accepts, on hypothesis-drawn
   float32 numerators at the bounds of u and v, on a sweep of them around
   every bound, and on rays aimed at vertices and edges; and it rejects
@@ -31,7 +32,8 @@ from tpu_raytracing.ops.traverse_pallas import intersect_tris_pallas
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.device import scene_buffers as SB
 from tpu_raytracing_torch.ops import traverse_kernels as TK
-from tpu_raytracing_torch.ops.intersect import ray_triangle_edges
+from tpu_raytracing_torch.ops.intersect import (prefilter_rejects,
+                                                ray_triangle_edges)
 from tpu_raytracing_torch.ops.linalg import cross, dot
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
@@ -55,22 +57,6 @@ def scenes():
         "metal": compile_scene(get_test_scene("metal").scene_func(), "cpu"),
         "repeated": compile_scene(repeated_triangles(), "cpu"),
     }
-
-
-def prefilter_rejects(den, nu, nv):
-    """The brute kernel's exact prefilter (csrc/t8_brute.cu::surely_misses)
-    in plain PyTorch: True only where Moller-Trumbore rejects the row, from
-    den and the numerators nu, nv of u and v (`numerators`), without a
-    divide. The kernel's comment proves it; the tests below hold it
-    against ray_triangle_edges."""
-    flip = torch.signbit(den)
-    n, m = torch.where(flip, -nu, nu), torch.where(flip, -nv, nv)
-    a = den.abs()
-    exact = a.double() * 2.0 ** -16
-    t = exact.float()  # rounded up, as __fmul_ru rounds it
-    t = torch.where(t.double() < exact,
-                    torch.nextafter(t, torch.full_like(t, float("inf"))), t)
-    return (n < -t) | (m < -t) | ((n - a) + m >= t)
 
 
 def numerators(origin, direction, p0, e1, e2):

@@ -750,17 +750,17 @@ def _inputs(probe, kind):
         "cuda")
 
 
-def _record_equal(run_kernel, run_plain):
-    """Kernel and plain version bit for bit: output, stats (visits run, the
-    drains' fold) and every visit's drained mask."""
-    vk, vp = (torch.full((PROBE_ITERS,), -7, dtype=torch.int32, device="cuda")
+def _record_equal(run_kernel, run_plain, n: int = PROBE_ITERS):
+    """Kernel and plain version bit for bit at n visits: output, stats
+    (visits run, the drains' fold) and every visit's drained mask."""
+    vk, vp = (torch.full((n,), -7, dtype=torch.int32, device="cuda")
               for _ in range(2))
     got, sk = run_kernel(vk)
     want, sp = run_plain(vp)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(sk, sp) and torch.equal(vk, vp)
-    assert 0 < int(sp[0]) <= PROBE_ITERS
+    assert 0 < int(sp[0]) <= n
     return want, vp[:int(sp[0])]
 
 
@@ -776,6 +776,27 @@ def test_slab_cost_kernel_vs_plain(card, variant, inputs):
     assert P2.slab_cost.launches[variant] == 1
     if inputs == "varied":
         assert len(set(seq.tolist())) > 1
+
+
+# P2's visits that pass the 1,024-node table's end (q wraps to node 0) and
+# so cross every stage of the kernel's ring of node blocks many times
+P2_WRAP_ITERS = 2100
+
+
+@pytest.mark.parametrize("inputs", ["script", "varied"])
+@pytest.mark.parametrize("variant", P2.VARIANTS)
+def test_slab_cost_wraps_the_table(card, variant, inputs):
+    """P2 bit for bit, visit by visit, at a count that wraps the node table
+    and refills every ring stage: the blocks stream in the walk's order."""
+    ins = _inputs(P2, inputs)
+    reset_probes()
+    _, seq = _record_equal(
+        lambda v: P2.slab_cost(*ins, variant, P2_WRAP_ITERS, visits=v),
+        lambda v: P2.slab_cost_plain(*ins, variant, P2_WRAP_ITERS, visits=v),
+        P2_WRAP_ITERS)
+    assert P2.slab_cost.launches[variant] == 1
+    q = sum(1 + (int(m) & 1) for m in seq[:-1])
+    assert q >= P2.NODES  # the last visit's node lies past the wrap
 
 
 @pytest.mark.parametrize("inputs", ["script", "varied"])

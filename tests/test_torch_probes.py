@@ -8,6 +8,10 @@ pallas_call patched and the module's ITERS set small. Their CUDA
 counterparts (csrc/probe_*.cu) are held against the same plain versions on
 the card, in tests/test_torch_cuda.py.
 
+P3's kernel runs K3's exact prefilter before its divides: on P3's inputs
+the prefilter's plain twin rejects no test the plain version accepts, and
+the host's count of the full tests it leaves the kernel is bounded.
+
 Tolerances: P4 is bit-equal in float32 and in bf16. P3's output
 t_best + float(best) is bit-equal too (no multiply-add is contracted), on
 the script's inputs, whose ids are random float bits near 1e9 that hide
@@ -25,7 +29,9 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from tpu_raytracing_torch.ops.intersect import prefilter_rejects
 from tpu_raytracing_torch.probes import bf16_vpu as P4
+from tpu_raytracing_torch.probes import common
 from tpu_raytracing_torch.probes import iter_cost as P3
 from tpu_raytracing_torch.probes import reset_launch_counts
 
@@ -183,6 +189,63 @@ def test_wrappers_run_plain_on_cpu():
     assert torch.equal(P4.bf16_vpu(box, ray, 8), P4.bf16_vpu_plain(box, ray, 8))
     assert not any(P3.iter_cost.launches.values())
     assert not any(P4.bf16_vpu.launches.values())
+
+
+@pytest.mark.parametrize("inputs", ["script", "small_ids"])
+def test_prefilter_keeps_every_hit(inputs):
+    """K3's exact prefilter (ops/intersect.py::prefilter_rejects, the twin
+    of the kernels' surely_misses) on P3's inputs, every block x shift x
+    ray: it rejects no test that the plain Moller-Trumbore accepts at
+    t_best = inf, from the den and numerators that test computes; and it
+    keeps few of them (about 3%: the divides the kernel skips)."""
+    tris, o, d, t_min = P3.script_inputs(small_ids=inputs == "small_ids")
+    R = P3.RMAX
+    o3, d3 = o.reshape(3, R, 1, P3.LANE), d.reshape(3, R, 1, P3.LANE)
+    t_best = torch.full((R, P3.LANE), float("inf"))
+    tests = kept = hits = 0
+    for block in range(P3.NB):
+        for shift in range(0, 120, 10):
+            den, nu, nv, ok, _ = common.mt_rows(
+                tris, o3, d3, t_min[:, None, :], t_best, block, shift)
+            keep = ~prefilter_rejects(den, nu, nv)
+            assert not (ok & ~keep).any()
+            assert torch.equal(keep, P3.kept(tris, o, d, t_min, R, block,
+                                              shift))
+            tests, kept, hits = (tests + keep.numel(), kept + int(keep.sum()),
+                                 hits + int(ok.sum()))
+    print(f"{inputs}: the prefilter keeps {kept} of {tests} tests "
+          f"({kept / tests * 100:.2f}%); {hits} of them hit")
+    assert 0 < hits <= kept < 0.05 * tests
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("R", [4, 1])
+def test_deferred_trips_bound_the_kept_tests(R, S):
+    """A warp trip of the kernel's second pass takes at most one kept test
+    a thread, and no thread takes more than its 16 x S: the host's count
+    of them lies between those bounds on 24 iterations, at the kernel's S
+    (RAYS_PER_THREAD) and at the others its source takes."""
+    ins = P3.script_inputs()
+    trace = [(q % P3.NB, (q % 12) * 10) for q in range(24)]
+    warps = R * P3.LANE // S // 32
+    trips = P3.deferred_trips(*ins, R, S, trace)
+    kept = sum(int(P3.kept(*ins, R, *key).sum()) for key in trace)
+    assert kept / 32 <= trips <= len(trace) * warps * P3.LG * S
+    assert trips <= kept
+
+
+@pytest.mark.parametrize("config", P3.CONFIGS, ids=P3.label)
+def test_iter_cost_plain_traces_its_iterations(config):
+    """The plain version's trace: one (block, shift) an iteration run,
+    block q % 8 and shift (q % 12) * 10 along the addresses q visited."""
+    trace, counts = [], torch.zeros(1, dtype=torch.int32)
+    P3.iter_cost_plain(*P3.script_inputs(), *config, 48, counts=counts,
+                       trace=trace)
+    assert len(trace) == int(counts.item())
+    for block, shift in trace:
+        assert block in range(P3.NB) and shift in range(0, 120, 10)
+    if not config[3]:
+        assert trace == [(q % P3.NB, (q % 12) * 10) for q in range(48)]
 
 
 @pytest.mark.parametrize("config", P3.CONFIGS, ids=P3.label)

@@ -8,82 +8,183 @@
 
 #include <climits>
 #include <cmath>
+#include <type_traits>
 
 #include <cuda_runtime.h>
+
+#include "traverse_common.cuh"
 
 namespace probe {
 
 constexpr int kLane = 128;
 constexpr int kRows = 16;        // triangle rows of a block
 constexpr int kNoId = 1 << 30;   // the scripts' id of a row that did not win
+// group() runs K3's exact prefilter before the divides (false: every gated
+// (row, ray) takes the full test; scripts/torch_probe_ab.py times that)
+constexpr bool kPrefilter = true;
 
-// One Moller-Trumbore pass of this thread's ray over the 16-row triangle
-// block at `tb` (row i at tb + i * 128), lanes s .. s + 9 (mod 128) of each
-// row: p0, e1, e2 and the triangle id as int32 bits. A ray whose `gate` is
-// false takes no hit. (t_best, best) are updated in place, with the
-// scripts' rule: least t, and of equal t the least id.
-__device__ __forceinline__ void group(const float* __restrict__ tb, int s,
-                                      bool gate, const float o[3],
-                                      const float d[3], float t_min,
-                                      float& t_best, int& best) {
-  const int* ib = reinterpret_cast<const int*>(tb);
-  float t_sl[kRows];
-  float tg = INFINITY;
+// A ray of a group pass: origin, direction and t_min (its 1 / d unread
+// here), and its winner so far.
+struct MtRay {
+  tpu_rt::Ray ray;
+  float t_best;
+  int best;
+};
+
+// A triangle row's ten words: p0, e1, e2, and the id as int32 bits.
+struct TriRow {
+  float p0[3], e1[3], e2[3];
+  int id;
+};
+
+// The row at `p` (8-byte aligned): five 8-byte loads. Every thread of the
+// block reads the same row, so in shared memory each is a broadcast.
+__device__ __forceinline__ TriRow load_row(const float* p) {
+  const float2* q = reinterpret_cast<const float2*>(p);
+  const float2 a = q[0], b = q[1], c = q[2], e = q[3], f = q[4];
+  return TriRow{{a.x, a.y, b.x}, {b.y, c.x, c.y}, {e.x, e.y, f.x},
+                __float_as_int(f.y)};
+}
+
+// den and the numerators nu, nv of u = nu / den and v = nv / den, in
+// tpu_rt::tri_hit's operations (so with its bits).
+__device__ __forceinline__ void numerators(const tpu_rt::Ray& r,
+                                           const TriRow& w, float& den,
+                                           float& nu, float& nv) {
+  const float pv0 = r.dy * w.e2[2] - r.dz * w.e2[1];
+  const float pv1 = r.dz * w.e2[0] - r.dx * w.e2[2];
+  const float pv2 = r.dx * w.e2[1] - r.dy * w.e2[0];
+  den = pv0 * w.e1[0] + pv1 * w.e1[1] + pv2 * w.e1[2];
+  const float tv0 = r.ox - w.p0[0], tv1 = r.oy - w.p0[1],
+              tv2 = r.oz - w.p0[2];
+  nu = pv0 * tv0 + pv1 * tv1 + pv2 * tv2;
+  const float qv0 = tv1 * w.e1[2] - tv2 * w.e1[1];
+  const float qv1 = tv2 * w.e1[0] - tv0 * w.e1[2];
+  const float qv2 = tv0 * w.e1[1] - tv1 * w.e1[0];
+  nv = qv0 * r.dx + qv1 * r.dy + qv2 * r.dz;
+}
+
+__device__ __forceinline__ int lowest_bit(unsigned m) { return __ffs(m) - 1; }
+
+__device__ __forceinline__ int lowest_bit(unsigned long long m) {
+  return __ffsll(static_cast<long long>(m)) - 1;
+}
+
+// One Moller-Trumbore pass of this thread's S rays over the 16-row triangle
+// block at `tb` (row i at tb + i * 128), lanes s .. s + 9 of each row (s
+// even and at most 118, so a row never wraps and its loads are 8-byte
+// aligned): p0, e1, e2 and the triangle id as int32 bits. Ray k takes no
+// hit where bit k of `gate` is clear. Each ray's (t_best, best) is updated
+// with the scripts' rule: every row is tested against the t_best from
+// before the block; the least t wins, and of equal t the least id, where
+// an id is kNoId unless all 16 rows hold that t (the scripts'
+// min(where(t_sl == tg, id, NO_ID))).
+//
+// The full test is tpu_rt::tri_hit: the scripts' Moller-Trumbore
+// (probe_iter_cost.py:83-111) op for op, with their bounds (1.00001f is
+// 1.0f + 1e-5f), so K3's prefilter proof covers it.
+//
+// Two passes. The first computes each (row, ray)'s den and numerators and
+// keeps, as one bit each, the pairs K3's prefilter (tpu_rt::surely_misses)
+// cannot reject: 36 operations and 8 for the filter, no divide; on the
+// script's inputs about 3% of them. The second takes only those, in
+// (ray, row) order, through the full test with its three IEEE divides,
+// reloading the row: a warp runs the most any of its threads keeps, not
+// 16 x S. The prefilter rejects only rows the full test rejects, and each
+// ray's rows come in row order, so the running minimum (fminf, as the
+// scripts fold t) and the ids of its ties end as the one-pass fold's.
+template <int S>
+__device__ __forceinline__ void group(const float* tb, int s, unsigned gate,
+                                      MtRay (&ray)[S]) {
+  static_assert(S >= 1 && S * kRows <= 64, "at most 4 rays a thread");
+  using Bits = std::conditional_t<(S * kRows <= 32), unsigned,
+                                  unsigned long long>;
+  Bits keep = 0;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const float* row = tb + i * kLane;
-    float p0[3], e1[3], e2[3];
+    const TriRow w = load_row(tb + i * kLane + s);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      p0[k] = row[(s + k) % kLane];
-      e1[k] = row[(s + 3 + k) % kLane];
-      e2[k] = row[(s + 6 + k) % kLane];
+    for (int k = 0; k < S; ++k) {
+      float den, nu, nv;
+      numerators(ray[k].ray, w, den, nu, nv);
+      if (((gate >> k) & 1u) &&
+          (!kPrefilter || !tpu_rt::surely_misses(den, nu, nv)))
+        keep |= Bits(1) << (k * kRows + i);
     }
-    const float pv0 = d[1] * e2[2] - d[2] * e2[1];
-    const float pv1 = d[2] * e2[0] - d[0] * e2[2];
-    const float pv2 = d[0] * e2[1] - d[1] * e2[0];
-    const float den = pv0 * e1[0] + pv1 * e1[1] + pv2 * e1[2];
-    const float sden = den == 0.0f ? 1.0f : den;
-    const float tv0 = o[0] - p0[0], tv1 = o[1] - p0[1], tv2 = o[2] - p0[2];
-    const float u = (pv0 * tv0 + pv1 * tv1 + pv2 * tv2) / sden;
-    const float qv0 = tv1 * e1[2] - tv2 * e1[1];
-    const float qv1 = tv2 * e1[0] - tv0 * e1[2];
-    const float qv2 = tv0 * e1[1] - tv1 * e1[0];
-    const float v = (qv0 * d[0] + qv1 * d[1] + qv2 * d[2]) / sden;
-    const float t = (qv0 * e2[0] + qv1 * e2[1] + qv2 * e2[2]) / sden;
-    const bool ok = den != 0.0f && u >= -1e-5f && u <= 1.00001f &&
-                    v >= -1e-5f && u + v <= 1.00001f && t >= t_min &&
-                    t <= t_best && gate;
-    t_sl[i] = ok ? t : INFINITY;
-    tg = fminf(tg, t_sl[i]);
   }
-  int idw = INT_MAX;
+  float tg[S];
+  int idw[S], ties[S];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-    idw = min(idw, t_sl[i] == tg ? ib[i * kLane + (s + 9) % kLane] : kNoId);
-  if (tg < INFINITY) {
-    t_best = tg;
-    best = idw;
+  for (int k = 0; k < S; ++k) {
+    tg[k] = INFINITY;
+    idw[k] = INT_MAX;
+    ties[k] = 0;
+  }
+  while (keep != 0) {
+    const int b = lowest_bit(keep);
+    keep &= keep - 1;
+    const int k = b / kRows;
+    MtRay r = ray[0];
+#pragma unroll
+    for (int j = 1; j < S; ++j)
+      if (k == j) r = ray[j];
+    const TriRow w = load_row(tb + (b % kRows) * kLane + s);
+    float t;
+    const bool ok = tpu_rt::tri_hit(r.ray, w.p0[0], w.p0[1], w.p0[2], w.e1[0],
+                                    w.e1[1], w.e1[2], w.e2[0], w.e2[1],
+                                    w.e2[2], r.t_best, &t);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (ok && k == j) {
+        if (t < tg[j]) {
+          idw[j] = w.id;
+          ties[j] = 1;
+        } else if (t == tg[j]) {
+          idw[j] = min(idw[j], w.id);
+          ++ties[j];
+        }
+        tg[j] = fminf(tg[j], t);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    if (tg[k] < INFINITY) {
+      ray[k].t_best = tg[k];
+      ray[k].best = ties[k] == kRows ? idw[k] : min(idw[k], kNoId);
+    }
   }
 }
 
-// The drain: the OR of every thread's word over the block, returned to
-// every thread, with one __syncthreads. Each warp ORs its words
-// (__reduce_or_sync) and its lane 0 ORs that into words[v % 3] of shared
-// memory; after the barrier every thread reads it. Visit v's word was zeroed
-// in visit v - 2 (thread 0 zeroes words[(v + 2) % 3], which no thread reads
-// after this barrier and none writes before the next one), so one barrier a
-// visit suffices. `words` holds 3 zeros before visit 0; the whole block
-// calls this, the same number of times. It is the dependency the probes
-// price: the TPU's one vector-to-scalar drain a visit.
+// The drain: the OR of every thread's word over the block of THREADS
+// threads, returned to every thread, with one __syncthreads. Each warp ORs
+// its words (__reduce_or_sync) and its lane 0 stores that in the warp's
+// slot of set v % 2 of `words`; after the barrier every thread ORs the
+// set's slots (16-byte broadcast loads). A thread stores into set v % 2
+// again only in visit v + 2, after visit v + 1's barrier, which every
+// thread reaches after its loads of visit v; so two sets suffice, and no
+// slot is zeroed but once: `words` (kDrainWords, 16-byte aligned) holds
+// zeros before visit 0. The whole block calls this, the same number of
+// times. It is the dependency the probes price: the TPU's one
+// vector-to-scalar drain a visit. (Slots, not one word every warp
+// atomicOr's: the atomics on one address queue before the barrier.)
+constexpr int kDrainWords = 64;  // two sets of a slot a warp, up to 32 warps
+
+template <int THREADS>
 __device__ __forceinline__ unsigned block_or(unsigned m, unsigned* words,
                                              int v) {
+  constexpr int kWarps = THREADS / 32;
+  static_assert(THREADS % 32 == 0 && kWarps <= 32, "whole warps, at most 32");
   const unsigned w = __reduce_or_sync(0xffffffffu, m);
-  unsigned* word = words + v % 3;
-  if ((threadIdx.x & 31) == 0) atomicOr(word, w);
+  unsigned* set = words + (v & 1) * 32;
+  if ((threadIdx.x & 31) == 0) set[threadIdx.x >> 5] = w;
   __syncthreads();
-  const unsigned all = *word;
-  if (threadIdx.x == 0) words[(v + 2) % 3] = 0u;
+  unsigned all = 0u;
+#pragma unroll
+  for (int i = 0; i < kWarps; i += 4) {  // slots past kWarps hold zeros
+    const uint4 x = *reinterpret_cast<const uint4*>(set + i);
+    all |= x.x | x.y | x.z | x.w;
+  }
   return all;
 }
 

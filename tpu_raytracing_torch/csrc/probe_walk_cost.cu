@@ -8,8 +8,8 @@
 // s .. s + 5 of row (nid / 16) * 16 + w, s = (nid % 16) * 8, which never
 // wraps), tests every ray against every slot (the slab of probe_common.cuh),
 // and drains the slots w < ni that some ray hit into one int mask_s over the
-// block (probe_common.cuh::block_or: a warp OR, a shared atomicOr, one
-// __syncthreads). The levels, one instantiation each:
+// block (probe_common.cuh::block_or: a warp OR, a slot a warp in shared
+// memory, one __syncthreads). The levels, one instantiation each:
 //
 //   kSlab     nid = q % 256, ni = 8, lbase = q % 64, computed by every
 //             thread alike
@@ -49,7 +49,8 @@
 // the ni slots that the drain keeps are needed), the drain's barrier (two
 // barriers a visit from kSmem on), and on the leaf trips 16 x 44 operations
 // a ray (needed for the rays the gate lets through) with three IEEE divides
-// a row.
+// a row, which since P3's redesign only the rows K3's prefilter keeps take
+// (probe_common.cuh::group, shared with P3; P1's own redesign is to come).
 // Numerics: no fast math, -fmad=false; inv = 1 / d with the IEEE divide.
 
 #include <cuda_runtime.h>
@@ -95,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float4 dyn4[];
   float* nodes_s = reinterpret_cast<float*>(dyn4);
   int* meta_s = reinterpret_cast<int*>(nodes_s + kNodeFloats);
-  __shared__ unsigned words[3];
+  __shared__ __align__(16) unsigned words[probe::kDrainWords];
   __shared__ int stack[kStack];
   __shared__ int state[3];                     // nid, ni, lbase
   __shared__ unsigned short row0[3][kLane];    // ray row 0's slot hits
@@ -108,7 +109,7 @@ __global__ void __launch_bounds__(kThreads)
     int4* mdst = reinterpret_cast<int4*>(meta_s);
     for (int i = tid; i < kMetaRows * 2 / 4; i += kThreads) mdst[i] = msrc[i];
   }
-  if (tid < 3) words[tid] = 0u;
+  if (tid < probe::kDrainWords) words[tid] = 0u;
   if (tid == 0) stack[0] = 1;
   float o[3], d[3], inv[3];
 #pragma unroll
@@ -164,7 +165,8 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (!kUseInner) {
       if (r == 0) row0[q % 3][lane] = static_cast<unsigned short>(hm);
     }
-    const int mask_s = static_cast<int>(probe::block_or(hm & valid, words, q));
+    const int mask_s =
+        static_cast<int>(probe::block_or<kThreads>(hm & valid, words, q));
     if (tid == 0 && visits != nullptr) visits[q] = mask_s;
     fold = fold * 33u + static_cast<unsigned>(mask_s);
     // ni <= 31: the script's int32 (1 << ni) - 1, in uint32 without overflow
@@ -185,8 +187,13 @@ __global__ void __launch_bounds__(kThreads)
         const int sl = probe::ffs_slot(lm);
         lm -= lm & (0u - lm);
         const int gq = (lbase + kSlots - 1 - sl) % kTriGroups;
-        probe::group(tris + (gq / 12) * probe::kRows * kLane, (gq % 12) * 10,
-                     (hm >> sl) & 1u, o, d, t_min, t_best, best);
+        probe::MtRay ray[1] = {{{o[0], o[1], o[2], d[0], d[1], d[2], inv[0],
+                                 inv[1], inv[2], t_min},
+                                t_best, best}};
+        probe::group<1>(tris + (gq / 12) * probe::kRows * kLane,
+                        (gq % 12) * 10, (hm >> sl) & 1u, ray);
+        t_best = ray[0].t_best;
+        best = ray[0].best;
       }
     } else {
       if (mask_s > (1 << 20) && ((row0[q % 3][lane] >> r) & 1u))

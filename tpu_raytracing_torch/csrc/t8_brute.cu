@@ -38,7 +38,8 @@
 //   ends its use, so the next two tiles arrive while the block tests this
 //   one. A table of one tile gets one stage of its own size (a Cornell
 //   scene: 12 rows, 624 B).
-// - An exact prefilter. surely_misses() rejects, from den and the
+// - An exact prefilter. tpu_rt::surely_misses() (traverse_common.cuh,
+//   shared with the probes P3 and P1) rejects, from den and the
 //   numerators of u and v alone (8 operations), every row whose triangle
 //   the ray's line passes outside of by more than about 2^-16 of |den|.
 //   Only the others, the few rows a ray's line pierces, take the three
@@ -67,7 +68,6 @@ constexpr int kStages = 3;
 constexpr int kRowWords = 12;          // p0 e1 e2, id, 0, 0
 constexpr int kRowBytes = kRowWords * 4;
 constexpr int kStageRowBytes = kRowBytes + 4;  // and the row's group
-constexpr float kMargin = 0x1p-16f;    // the prefilter's margin
 
 struct Args {
   const float* tris;
@@ -93,29 +93,6 @@ struct Lane {
   int group;  // its group, -1 while there is none
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Block until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // Thread 0: copy tile `tile` of the table (its rows and their groups) into
 // the stage at `dst`; the copies complete on `bar`. Both sources and
 // destinations are 16-byte aligned and every size is a multiple of 16.
@@ -125,21 +102,11 @@ __device__ __forceinline__ void fill(const Args& a, unsigned char* dst,
   const int rows = min(a.tile_rows, a.n_records - first);
   const uint32_t row_bytes = rows * kRowBytes;
   const uint32_t group_bytes = ((rows + 3) & ~3) * 4;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(row_bytes + group_bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(a.tris + static_cast<size_t>(first) * kRowWords), "r"(row_bytes),
-      "r"(smem_addr(bar))
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst + a.tile_rows * kRowBytes)),
-      "l"(a.groups + first), "r"(group_bytes), "r"(smem_addr(bar))
-      : "memory");
+  tpu_rt::expect_bytes(bar, row_bytes + group_bytes);
+  tpu_rt::bulk_load(dst, a.tris + static_cast<size_t>(first) * kRowWords,
+                    row_bytes, bar);
+  tpu_rt::bulk_load(dst + a.tile_rows * kRowBytes, a.groups + first,
+                    group_bytes, bar);
 }
 
 // The ray of lane i, or for i < 0 a slot with no ray: o = d = 0, so
@@ -153,42 +120,6 @@ __device__ __forceinline__ Lane load_lane(const Args& a, int i) {
     l.t = a.t_max[i];
   }
   return l;
-}
-
-// True only where tpu_rt::tri_hit rejects the row, decided without a
-// divide from den and the numerators nu, nv of u = nu / den, v = nv / den
-// (tri_hit's own values: see test_row). Write a = |den|, N = nu sgn(den),
-// M = nv sgn(den) (sign flips, exact) and T = a 2^-16 rounded up. IEEE
-// division is symmetric in sign, so tri_hit's u = fl(N / a), v = fl(M / a).
-// The rules:
-//   R1  N < -T                  (u below 0 by more than 2^-16)
-//   R2  M < -T                  (v likewise)
-//   R3  fl(fl(N - a) + M) >= T  (u + v above 1 by about 2^-16 or more)
-// One of them holds outside the triangle grown by about 2^-16; u <= 1 needs
-// no rule, as v >= 0 and u + v <= 1 give it. Suppose tri_hit accepts the
-// row: den != 0, no NaN, u >= -eps, v >= -eps, u <= c and fl(u + v) <= c,
-// with eps = fl(1e-5) < 84 2^-23 and c = 1 + 84 2^-23; and
-// T >= a 2^-16 = 128 2^-23 a. If a = inf, T = inf and N, M are finite (else
-// u or v would be NaN): no rule holds. Else a is finite and positive, and
-// - R1: N / a <= -2^-16 would round to at most -2^-16 < -eps (rounding is
-//   monotone), so N > -a 2^-16 >= -T. R2 the same with v.
-// - R3: here |u|, |v| < 1.0001, so N / a and M / a lie within 0.51 2^-23
-//   of u and v, and u + v <= c + 2^-24: N + M - a <= 85.52 2^-23 a.
-//   fl(N - a) is exact (Sterbenz) unless N < a / 2, where it adds at most
-//   0.51 2^-23 a, and fl(. + M) adds a relative 2^-24 or 2^-150: the left
-//   side is below 86.04 2^-23 a + 2^-150 < T while a > 2^-132.4. Below
-//   that every value is a multiple of 2^-149 under 2^-126, so both sums
-//   are exact and it is at most 85.52 2^-23 a < T.
-// So no rule holds. Neither den == 0 nor NaN needs a rule: tri_hit rejects
-// those rows itself. Nothing here depends on t_min or t.
-__device__ __forceinline__ bool surely_misses(float den, float nu,
-                                              float nv) {
-  const int sign = __float_as_int(den) & 0x80000000;
-  const float n = __int_as_float(__float_as_int(nu) ^ sign);
-  const float m = __int_as_float(__float_as_int(nv) ^ sign);
-  const float a = fabsf(den);
-  const float t = __fmul_ru(a, kMargin);
-  return (n < -t) | (m < -t) | ((n - a) + m >= t);
 }
 
 // Row `row` (12 words in shared memory; `group` its group) against the
@@ -218,7 +149,7 @@ __device__ __forceinline__ void test_row(Lane (&l)[S], const float* row,
     const float qv1 = tv2 * e1x - tv0 * e1z;
     const float qv2 = tv0 * e1y - tv1 * e1x;
     const float nv = qv0 * ray.dx + qv1 * ray.dy + qv2 * ray.dz;
-    may[r] = !surely_misses(den, nu, nv);
+    may[r] = !tpu_rt::surely_misses(den, nu, nv);
     any |= may[r];
   }
   if (!any) return;  // every ray of the thread surely misses the row
@@ -262,7 +193,7 @@ __device__ __forceinline__ void run(const Args& a, const int* lanes,
   int groups = 0, last_group = -1;  // the counters: groups with a row
   for (int it = 0; it < a.n_tiles; ++it) {
     const int s = it % a.n_stages;
-    bar_wait(&full[s], (it / a.n_stages) & 1);
+    tpu_rt::bar_wait(&full[s], (it / a.n_stages) & 1);
     const unsigned char* stage = ring + s * stage_bytes;
     const float* rows = reinterpret_cast<const float*>(stage);
     const int* grp =
@@ -323,7 +254,7 @@ __global__ void __launch_bounds__(kThreads)
     pos[r] = live ? __popc(m & ((1u << lane) - 1u)) : -1;
   }
   if (threadIdx.x == 0) {
-    for (int s = 0; s < a.n_stages; ++s) bar_init(&full[s]);
+    for (int s = 0; s < a.n_stages; ++s) tpu_rt::bar_init(&full[s]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();

@@ -411,4 +411,95 @@ __device__ __forceinline__ void test_leaves(const Ray& ray,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The TMA ring of K3 (t8_brute.cu) and P2 (probe_slab_cost.cu): mbarriers in
+// shared memory that one thread arms with the bytes it expects, and bulk
+// copies (cp.async.bulk) from device memory that complete on them.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Block until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Arm `bar` for one phase that completes when `bytes` have landed.
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Copy `bytes` from `src` in device memory to `dst` in shared memory; the
+// copy completes on `bar`. Both addresses 16-byte aligned, bytes a multiple
+// of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The exact prefilter of K3 (t8_brute.cu), which the probes P3 and P1 share
+// (probe_common.cuh::group): their Moller-Trumbore bounds are tri_hit's.
+
+constexpr float kMargin = 0x1p-16f;  // the prefilter's margin
+
+// True only where tpu_rt::tri_hit rejects the row, decided without a
+// divide from den and the numerators nu, nv of u = nu / den, v = nv / den
+// (tri_hit's own values, computed in its operations by K3's test_row and
+// P3's probe::group). Write a = |den|, N = nu sgn(den),
+// M = nv sgn(den) (sign flips, exact) and T = a 2^-16 rounded up. IEEE
+// division is symmetric in sign, so tri_hit's u = fl(N / a), v = fl(M / a).
+// The rules:
+//   R1  N < -T                  (u below 0 by more than 2^-16)
+//   R2  M < -T                  (v likewise)
+//   R3  fl(fl(N - a) + M) >= T  (u + v above 1 by about 2^-16 or more)
+// One of them holds outside the triangle grown by about 2^-16; u <= 1 needs
+// no rule, as v >= 0 and u + v <= 1 give it. Suppose tri_hit accepts the
+// row: den != 0, no NaN, u >= -eps, v >= -eps, u <= c and fl(u + v) <= c,
+// with eps = fl(1e-5) < 84 2^-23 and c = 1 + 84 2^-23; and
+// T >= a 2^-16 = 128 2^-23 a. If a = inf, T = inf and N, M are finite (else
+// u or v would be NaN): no rule holds. Else a is finite and positive, and
+// - R1: N / a <= -2^-16 would round to at most -2^-16 < -eps (rounding is
+//   monotone), so N > -a 2^-16 >= -T. R2 the same with v.
+// - R3: here |u|, |v| < 1.0001, so N / a and M / a lie within 0.51 2^-23
+//   of u and v, and u + v <= c + 2^-24: N + M - a <= 85.52 2^-23 a.
+//   fl(N - a) is exact (Sterbenz) unless N < a / 2, where it adds at most
+//   0.51 2^-23 a, and fl(. + M) adds a relative 2^-24 or 2^-150: the left
+//   side is below 86.04 2^-23 a + 2^-150 < T while a > 2^-132.4. Below
+//   that every value is a multiple of 2^-149 under 2^-126, so both sums
+//   are exact and it is at most 85.52 2^-23 a < T.
+// So no rule holds. Neither den == 0 nor NaN needs a rule: tri_hit rejects
+// those rows itself. Nothing here depends on t_min or t.
+__device__ __forceinline__ bool surely_misses(float den, float nu,
+                                              float nv) {
+  const int sign = __float_as_int(den) & 0x80000000;
+  const float n = __int_as_float(__float_as_int(nu) ^ sign);
+  const float m = __int_as_float(__float_as_int(nv) ^ sign);
+  const float a = fabsf(den);
+  const float t = __fmul_ru(a, kMargin);
+  return (n < -t) | (m < -t) | ((n - a) + m >= t);
+}
+
 }  // namespace tpu_rt

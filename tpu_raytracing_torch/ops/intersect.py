@@ -2,7 +2,8 @@
 
 Counterpart of tpu_raytracing/ops/intersect.py: the slab test,
 Moller-Trumbore, and stable-quadratic spheres with spherical uv, dpdu and
-dpdv. Constants are grouped as in the JAX package (`2.0 * pi * x` is one
+dpdv; and the plain twin of the kernels' exact Moller-Trumbore prefilter.
+Constants are grouped as in the JAX package (`2.0 * pi * x` is one
 rounded f32 constant times x), so both round alike.
 """
 from __future__ import annotations
@@ -52,6 +53,24 @@ def ray_triangle_edges(origin, direction, p0, e1, e2, t_min, t_max):
         & (t >= t_min) & (t <= t_max)
     )
     return valid, torch.where(valid, t, torch.full_like(t, float("inf"))), u, v
+
+
+def prefilter_rejects(den, nu, nv):
+    """The exact prefilter of the brute kernel K3 and the probes P3 and P1
+    (csrc/traverse_common.cuh::surely_misses) in plain PyTorch: True only
+    where Moller-Trumbore rejects the row, from den and the numerators nu,
+    nv of u = nu / den and v = nv / den, without a divide. The kernel's
+    comment proves it; tests/test_torch_brute.py holds it against
+    ray_triangle_edges, tests/test_torch_probes.py against the probes'
+    Moller-Trumbore."""
+    flip = torch.signbit(den)
+    n, m = torch.where(flip, -nu, nu), torch.where(flip, -nv, nv)
+    a = den.abs()
+    exact = a.double() * 2.0 ** -16
+    t = exact.float()  # rounded up, as __fmul_ru rounds it
+    t = torch.where(t.double() < exact,
+                    torch.nextafter(t, torch.full_like(t, float("inf"))), t)
+    return (n < -t) | (m < -t) | ((n - a) + m >= t)
 
 
 def ray_sphere(origin, direction, center, radius, t_min, t_max):

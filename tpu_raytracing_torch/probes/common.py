@@ -1,7 +1,7 @@
 """What the probes share: the device choice and the timing of their mains,
-the Moller-Trumbore group body of P3 and P1, the slab, the second input
-set and the drain record of P2 and P1, and the reading of a kernel's loop
-in SASS."""
+the Moller-Trumbore group body of P3 and P1 (and the values of its rows
+that K3's prefilter reads), the slab, the second input set and the drain
+record of P2 and P1, and the reading of a kernel's loop in SASS."""
 from __future__ import annotations
 
 import argparse
@@ -63,17 +63,18 @@ def device_name(device: str) -> str:
     return torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
 
 
-def group(tris, ids, o, d, t_min, t_best, best, block, shift, gate=None):
-    """One Moller-Trumbore pass of a 16-row triangle block against R x 128
-    rays, op for op as the scripts write it (probe_iter_cost.py:83-111,
+def mt_rows(tris, o, d, t_min, t_best, block, shift):
+    """Moller-Trumbore of a 16-row triangle block against R x 128 rays, op
+    for op as the scripts write it (probe_iter_cost.py:83-111,
     probe_walk_cost.py:154-197): rows block * 16 .. + 15 of `tris`, lanes
-    shift .. shift + 9 (p0, e1, e2, the id as int32 bits in `ids`). o, d
-    (3, R, 1, LANE), t_min (R, 1, LANE); a ray whose `gate` (R, LANE) is
-    False takes no hit. Returns the new (t_best, best), (R, LANE)."""
+    shift .. shift + 9 (p0, e1, e2; lane shift + 9 holds the id). o, d
+    (3, R, 1, LANE), t_min (R, 1, LANE), t_best (R, LANE). Returns den and
+    the numerators nu, nv of u = nu / den and v = nv / den (the values
+    K3's prefilter reads), whether the row is hit, and t, each (R, LG,
+    LANE)."""
     rows = slice(block * LG, (block + 1) * LG)
-    cols = (torch.arange(10, device=tris.device) + shift) % LANE
-    tb = tris[rows][:, cols]                        # (LG, 10)
-    idb = ids[rows][:, cols[9]][None, :, None]      # (1, LG, 1)
+    cols = (torch.arange(9, device=tris.device) + shift) % LANE
+    tb = tris[rows][:, cols]                        # (LG, 9)
     p0, e1, e2 = ([tb[:, k][None, :, None] for k in range(j, j + 3)]
                   for j in (0, 3, 6))
     pv0 = d[1] * e2[2] - d[2] * e2[1]
@@ -82,14 +83,27 @@ def group(tris, ids, o, d, t_min, t_best, best, block, shift, gate=None):
     den = pv0 * e1[0] + pv1 * e1[1] + pv2 * e1[2]
     sden = torch.where(den == 0.0, 1.0, den)
     tv = [o[k] - p0[k] for k in range(3)]
-    u = (pv0 * tv[0] + pv1 * tv[1] + pv2 * tv[2]) / sden
+    nu = pv0 * tv[0] + pv1 * tv[1] + pv2 * tv[2]
+    u = nu / sden
     qv0 = tv[1] * e1[2] - tv[2] * e1[1]
     qv1 = tv[2] * e1[0] - tv[0] * e1[2]
     qv2 = tv[0] * e1[1] - tv[1] * e1[0]
-    v = (qv0 * d[0] + qv1 * d[1] + qv2 * d[2]) / sden
+    nv = qv0 * d[0] + qv1 * d[1] + qv2 * d[2]
+    v = nv / sden
     t = (qv0 * e2[0] + qv1 * e2[1] + qv2 * e2[2]) / sden
     ok = ((den != 0.0) & (u >= -1e-5) & (u <= 1.00001) & (v >= -1e-5)
           & (u + v <= 1.00001) & (t >= t_min) & (t <= t_best[:, None, :]))
+    return den, nu, nv, ok, t
+
+
+def group(tris, ids, o, d, t_min, t_best, best, block, shift, gate=None):
+    """One Moller-Trumbore pass (mt_rows) of a 16-row triangle block
+    against R x 128 rays, with the id of each row as int32 bits in `ids`
+    at lane shift + 9; a ray whose `gate` (R, LANE) is False takes no hit.
+    Returns the new (t_best, best), (R, LANE): the least t, and of equal t
+    the least id, where an id is NO_ID unless all 16 rows hold that t."""
+    *_, ok, t = mt_rows(tris, o, d, t_min, t_best, block, shift)
+    idb = ids[block * LG:(block + 1) * LG, (shift + 9) % LANE][None, :, None]
     if gate is not None:
         ok = ok & gate[:, None, :]
     t_sl = torch.where(ok, t, float("inf"))
@@ -210,12 +224,10 @@ def _sass(library: Path) -> str | None:
     return res.stdout if res.returncode == 0 else None
 
 
-def loop_instructions(kernel: str) -> Counter | None:
-    """Opcodes of a kernel's loop body in SASS, from cuobjdump on the built
-    library: in the first function whose mangled name holds `kernel`, the
-    instructions from the target of a backward branch to the branch, for
-    the branch that spans most (an outer loop, its inner loops included).
-    None where cuobjdump or a loop is not found."""
+def _branches(kernel: str):
+    """(instructions as (address, opcode), branches as (address, target))
+    of the first function in the built library's SASS whose mangled name
+    holds `kernel`; None where cuobjdump or the function is not found."""
     sass = _sass(native_cuda.library_path())
     if sass is None:
         return None
@@ -225,7 +237,7 @@ def loop_instructions(kernel: str) -> Counter | None:
         ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
             r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
             section)]
-        loops = []
+        branches = []
         for addr, op in ins:
             if not op.startswith("BRA"):
                 continue
@@ -234,10 +246,55 @@ def loop_instructions(kernel: str) -> Counter | None:
             target = re.search(
                 r"BRA(?:\.\w+)*\s+(?:!?U?P\w+,\s*)?(?:`\()?(?:0x)?([0-9a-f]+)",
                 line)
-            if target and int(target.group(1), 16) < addr:
-                loops.append((int(target.group(1), 16), addr))
-        if loops:
-            lo, hi = max(loops, key=lambda span: span[1] - span[0])
-            return Counter(o for a, o in ins if lo <= a <= hi)
-        return None
+            if target:
+                branches.append((addr, int(target.group(1), 16)))
+        return ins, branches
     return None
+
+
+def _widest(spans):
+    return max(spans, key=lambda span: span[1] - span[0])
+
+
+def loop_instructions(kernel: str, inner: bool = False):
+    """Opcodes of a kernel's loop body in SASS, from cuobjdump on the built
+    library: in the first function whose mangled name holds `kernel`, the
+    instructions from the target of a backward branch to the branch, for
+    the branch that spans most (an outer loop, its inner loops included
+    once). None where cuobjdump or a loop is not found. With `inner`, a
+    pair: that, and the opcodes of the widest loop inside it (None if it
+    holds none)."""
+    found = _branches(kernel)
+    if found is None:
+        return None
+    ins, branches = found
+    loops = [(b, a) for a, b in branches if b < a]
+    if not loops:
+        return None
+    lo, hi = _widest(loops)
+    body = Counter(o for a, o in ins if lo <= a <= hi)
+    if not inner:
+        return body
+    inside = [(a, b) for a, b in loops
+              if lo <= a and b <= hi and (a, b) != (lo, hi)]
+    if not inside:
+        return body, None
+    ilo, ihi = _widest(inside)
+    return body, Counter(o for a, o in ins if ilo <= a <= ihi)
+
+
+def skipped_regions(kernel: str) -> list[Counter]:
+    """Opcodes of each region inside a kernel's widest loop that a forward
+    branch there skips (the instructions after the branch, up to its
+    target): the parts of a visit that not every warp, or not every visit,
+    runs. Empty where the loop is not found."""
+    found = _branches(kernel)
+    if found is None:
+        return []
+    ins, branches = found
+    loops = [(b, a) for a, b in branches if b < a]
+    if not loops:
+        return []
+    lo, hi = _widest(loops)
+    return [Counter(o for x, o in ins if a < x < b) for a, b in branches
+            if lo <= a < b <= hi]

@@ -17,8 +17,11 @@ Inputs, as the script passes them whatever R is:
 
 `iter_cost` launches csrc/probe_iter_cost.cu for CUDA tensors and runs
 `iter_cost_plain` for CPU tensors; it takes only the script's five
-configurations (CONFIGS). `python -m tpu_raytracing_torch.probes.iter_cost`
-times them on the card (`--device cpu` runs the plain version).
+configurations (CONFIGS). The kernel runs K3's exact prefilter before the
+divides, a ray a thread; `kept` and `deferred_trips` count, on the host,
+the full tests that the prefilter leaves it. `python -m
+tpu_raytracing_torch.probes.iter_cost` times the configurations on the
+card (`--device cpu` runs the plain version).
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ import numpy as np
 import torch
 
 from ..native_cuda import check_tensor, launch, on_card
-from .common import LANE, LG, best_ms, device_name, group, parse_args
+from ..ops.intersect import prefilter_rejects
+from . import common
+from .common import LANE, LG, best_ms, device_name, group, mt_rows, parse_args
 
 NB = 8         # blocks of tris
 RMAX = 4       # ray rows the inputs hold
@@ -47,6 +52,8 @@ ITERS = int(os.environ.get("PROBE_ITERS", "4096"))  # as in the script
 # the trip counts fori's kernel is compiled for: the card tests' count and
 # the script's default
 FORI_ITERS = (256, 4096)
+# the kernel's rays a thread, S (probe_iter_cost.cu::kRaysPerThread)
+RAYS_PER_THREAD = 1
 _F32 = torch.float32
 
 
@@ -71,10 +78,12 @@ def _drain_parity(best) -> int:
 
 
 def iter_cost_plain(tris, o, d, t_min, R: int, roll: bool, dynamic: bool,
-                    chain: bool, loop: str, iters: int, counts=None):
+                    chain: bool, loop: str, iters: int, counts=None,
+                    trace=None):
     """The probe in plain PyTorch, one iteration at a time; any R of 1..4,
     roll and dynamic on or off. `counts`, a (1,) int32 tensor, receives
-    the iterations run (fewer than `iters` with the chain)."""
+    the iterations run (fewer than `iters` with the chain); `trace`, a
+    list, each iteration's (block, shift)."""
     _check_plain_config(R, chain, loop)
     ids = tris.contiguous().view(torch.int32)
     o3 = o[:3 * R].reshape(3, R, 1, LANE)
@@ -86,6 +95,8 @@ def iter_cost_plain(tris, o, d, t_min, R: int, roll: bool, dynamic: bool,
     def body(q, addr):
         block = addr % NB if chain else (q % NB if dynamic else 0)
         shift = (q % 12) * 10 if roll else 0
+        if trace is not None:
+            trace.append((block, shift))
         return group(tris, ids, o3, d3, tmn, t_best, best, block, shift)
 
     q = addr = n_run = 0
@@ -143,6 +154,45 @@ def iter_cost(tris, o, d, t_min, R: int, roll: bool, dynamic: bool,
 iter_cost.launches = {label(c): 0 for c in CONFIGS}
 
 
+def sass_name(config, iters: int) -> str:
+    """The part of the mangled name of the kernel a configuration launches
+    (its template arguments R, S, CHAIN, LOOP, FIXED)."""
+    R, _, _, chain, loop = config
+    S = RAYS_PER_THREAD
+    fixed = iters if loop == "fori" else 0
+    return (f"probe_iter_costILi{R}ELi{S}ELb{int(chain)}ELi"
+            f"{LOOPS.index(loop)}ELi{fixed}EE")
+
+
+def kept(tris, o, d, t_min, R: int, block: int, shift: int):
+    """The (row, ray) tests of one iteration that K3's prefilter leaves the
+    kernel's full test (its gate is open for every ray): (R, LG, LANE)
+    bool, from the plain version's den and numerators (common.mt_rows)."""
+    o3 = o[:3 * R].reshape(3, R, 1, LANE)
+    d3 = d[:3 * R].reshape(3, R, 1, LANE)
+    t_best = torch.full((R, LANE), float("inf"), dtype=_F32, device=o.device)
+    den, nu, nv, _, _ = mt_rows(tris, o3, d3, t_min[:R][:, None, :], t_best,
+                                block, shift)
+    return ~prefilter_rejects(den, nu, nv)
+
+
+def deferred_trips(tris, o, d, t_min, R: int, S: int, trace) -> int:
+    """Warp trips of the kernel's second pass over the iterations `trace`
+    ((block, shift) each, as iter_cost_plain records them) at S rays a
+    thread: for each iteration and warp, the most full tests any of its
+    threads takes (thread x holds rays x, x + R * 128 / S, ...)."""
+    threads = R * LANE // S
+    per_it = {}
+    total = 0
+    for key in trace:
+        if key not in per_it:
+            n = kept(tris, o, d, t_min, R, *key).sum(dim=1).reshape(-1)
+            per_thread = n.reshape(S, threads).sum(dim=0)
+            per_it[key] = int(per_thread.reshape(-1, 32).amax(dim=1).sum())
+        total += per_it[key]
+    return total
+
+
 def script_inputs(device="cpu", small_ids: bool = False):
     """The script's inputs (probe_iter_cost.py:165-170): tris, o, d, t_min.
     With `small_ids`, every lane that a roll makes an id lane (9, 19 ..
@@ -161,7 +211,9 @@ def script_inputs(device="cpu", small_ids: bool = False):
 def main(argv=None) -> list[dict]:
     """Time each configuration at --iters iterations (default PROBE_ITERS,
     4096) and print the script's line for it, plus the ns per iteration
-    actually run (the chain runs fewer). Returns one dict a configuration."""
+    actually run (the chain runs fewer), and on the card the iteration
+    loop's SASS instructions (the second pass's loop, inside it, apart).
+    Returns one dict a configuration."""
     args = parse_args(argv, __doc__.splitlines()[0], ITERS)
     dev = args.device
     ins = script_inputs(dev)
@@ -177,9 +229,20 @@ def main(argv=None) -> list[dict]:
         ns_run = ms * 1e6 / max(n_run, 1)
         print(f"{label(config)}: {ns:8.1f} ns/iter ({ns_run:8.1f} ns per "
               f"iteration run; {n_run} of {args.iters} run)", flush=True)
-        results.append(dict(config=label(config), ms=ms, iters=args.iters,
-                            iters_run=n_run, ns_per_iter=ns,
-                            ns_per_iter_run=ns_run))
+        res = dict(config=label(config), ms=ms, iters=args.iters,
+                   iters_run=n_run, ns_per_iter=ns, ns_per_iter_run=ns_run,
+                   sass=None, sass_inner=None)
+        if dev == "cuda":
+            found = common.loop_instructions(sass_name(config, args.iters),
+                                             inner=True)
+            if found is not None:
+                res["sass"], res["sass_inner"] = (
+                    dict(c) if c is not None else None for c in found)
+                inner = sum(found[1].values()) if found[1] else 0
+                print(f"{label(config)}: iteration loop in SASS, "
+                      f"{sum(found[0].values())} instructions, {inner} of "
+                      f"them in the second pass's loop", flush=True)
+        results.append(res)
     return results
 
 

@@ -30,7 +30,9 @@ each visit's mask_s (`visits`) and `stats` = (visits run, a wrapping fold
 of the drains), from the kernel and from the plain version alike.
 
 `slab_cost` launches csrc/probe_slab_cost.cu for CUDA tensors and runs
-`slab_cost_plain` for CPU tensors. `python -m
+`slab_cost_plain` for CPU tensors. The kernel streams the node blocks
+through a ring in shared memory in the order the walk meets them, so a
+visit's boxes never wait on L2. `python -m
 tpu_raytracing_torch.probes.slab_cost` times every variant on the card
 (`--device cpu` runs the plain version).
 """
@@ -55,6 +57,15 @@ NODES = NB * 16  # nodes: a visit reads node q % NODES
 VARIANTS = ("floor", "cur", "hoist", "row0", "mxu")
 # the kernel's instantiation of each variant: hoist runs cur's
 KERNEL_OF = {"floor": 0, "cur": 1, "hoist": 1, "row0": 2, "mxu": 3}
+# the kernel's threads a variant (probe_slab_cost.cu::threads_of): the
+# rays, CUR_RAYS a thread (kCurRays; floor's block is cur's), of which 128
+# compare in floor; row0's 128 rays; and mxu's 6 groups x 128 columns,
+# MXU_COLS a thread (kCols)
+CUR_RAYS = 2
+MXU_COLS = 2
+THREADS = {"floor": R * LANE // CUR_RAYS, "cur": R * LANE // CUR_RAYS,
+           "hoist": R * LANE // CUR_RAYS, "row0": LANE,
+           "mxu": 6 * LANE // MXU_COLS}
 ITERS = int(os.environ.get("PROBE_ITERS", "4096"))  # as in the script
 _F32 = torch.float32
 _INF = float("inf")
@@ -236,16 +247,18 @@ def main(argv=None) -> list[dict]:
         ns_run = ms * 1e6 / max(n_run, 1)
         print(f"{variant:6s}: {ns:8.1f} ns/visit ({ns_run:8.1f} ns per visit "
               f"run; {n_run} of {args.iters} run)", flush=True)
-        sass = (common.loop_instructions(
-            f"probe_slab_costILi{KERNEL_OF[variant]}E")
+        found = (common.loop_instructions(
+            f"probe_slab_costILi{KERNEL_OF[variant]}E", inner=True)
             if dev == "cuda" else None)
+        sass, inner = found if found is not None else (None, None)
         if sass is not None:
             print(f"{variant:6s}: visit loop in SASS, {sum(sass.values())} "
                   f"instructions", flush=True)
         results.append(dict(variant=variant, ms=ms, iters=args.iters,
                             visits_run=n_run, ns_per_visit=ns,
                             ns_per_visit_run=ns_run,
-                            sass=None if sass is None else dict(sass)))
+                            sass=None if sass is None else dict(sass),
+                            sass_inner=None if inner is None else dict(inner)))
     return results
 
 
