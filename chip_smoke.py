@@ -99,8 +99,9 @@ Phases (any failure exits nonzero and prints no result):
    P2 and P1 in their outputs, stats and every visit's drained mask, and
    also on a second seeded input set whose drains vary), with ptxas's
    registers and spills of each probe instantiation, the share of P3's
-   tests that K3's prefilter keeps, and P2's and P3's warp instructions
-   issued a clock from their loops' SASS;
+   tests that K3's prefilter keeps, every probe's warp instructions issued
+   a clock from its loop's SASS, and P1's visit loop in SASS by opcode,
+   its slots tested a visit and its rays tested a leaf trip;
 11. multi-gpu: the distributed driver (tpu_raytracing_torch/parallel) with
    a world of one rank through NCCL on a file:// store: render_distributed
    of tests/test_parallel.py's 37x27 checkered_plane (2 spp, depth 2)
@@ -120,7 +121,11 @@ Phases (any failure exits nonzero and prints no result):
    bounce-2 batches (closest-hit and its shadow rays) held against the plain
    walk and timed like the camera rays; then all of the frame's bvh8t
    batches replayed, sample 0 bounce by bounce with counters and bounds,
-   the whole frame summed by mode. It comes last because a profiler session
+   the whole frame summed by mode; and every kept batch through the brute
+   kernel too, which culls no box, counting per bounce the lanes where
+   bvh8t and the brute force differ beyond equal-t ties (closest-hit) and
+   the any-hit bits that differ: how often the frame's rays meet fault F3
+   (a count, not a check). It comes last because a profiler session
    slows the host-bound phases that follow it in the same process.
 
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...},
@@ -2152,8 +2157,9 @@ def phase_probes(card: str, ptxas_log: str) -> list:
         bound_ms, bound_by = bound_entry(ops, nbytes, peak)
         # the loop's SASS instructions issued by the block's warps, a clock
         # at the max clock, against one SM's 4 schedulers
-        issue = (sum(res["sass"].values()) * P4.THREADS / 32 * res["iters"]
-                 / (res["ms"] * 1e-3 * clock) if res["sass"] else None)
+        issue = (P4.issue_per_clock(name, res["sass"], res["iters"],
+                                    res["ms"], clock)
+                 if res["sass"] else None)
         if issue is not None:
             print(f"# probe_bf16_vpu {name}: {issue:.3f} warp instructions a "
                   f"clock at the max clock ({issue / 4 * 100:.1f}% of one "
@@ -2165,7 +2171,8 @@ def phase_probes(card: str, ptxas_log: str) -> list:
             sm_share=bound_ms / res["ms"] * SMS, issue_per_clock=issue))
     eq2, varied2, p2_configs = check_p2(p2, launches["probe_slab_cost"],
                                         clock)
-    eq1, varied1, p1_configs = check_p1(p1, launches["probe_walk_cost"])
+    eq1, varied1, p1_configs = check_p1(p1, launches["probe_walk_cost"],
+                                        clock)
     ok = ok and eq2 and eq1
     entries = []
     for (kname, source, replaces), configs, key in zip(
@@ -2402,9 +2409,9 @@ def check_p2(results, launches, clock: float) -> tuple:
         P2_VARIED_ITERS, assess)
 
 
-def check_p1(results, launches) -> tuple:
+def check_p1(results, launches, clock: float) -> tuple:
     """P1 through check_drain_probe; bounds from this run's visits and the
-    work its plain run counted."""
+    work its plain run counted, and the issue rate from its SASS."""
     from tpu_raytracing_torch.probes import walk_cost as P1
 
     def assess(res, seq, work, outputs):
@@ -2423,11 +2430,20 @@ def check_p1(results, launches) -> tuple:
                         nbytes, res["ms"])
         slots = work["slab_tests"] / max(len(seq), 1) / 512
         rays = work["leaf_tests"] / max(trips, 1) / P1.LG
-        return b, (f"{len(seq)} visits, {slots:.3f} slots below ni a visit "
-                   f"(of 16), {trips} leaf trips with {rays:.1f} rays gated "
-                   f"on a trip (of 512), finite outputs {fin[0] * 100:.2f}% "
-                   f"/ {fin[1] * 100:.2f}% (script / varied inputs)"), dict(
-            leaf_trips=trips, slots_needed=slots, leaf_rays=rays), all(
+        issue = P1.issue_per_clock(res["level"], len(seq), work, res["ms"],
+                                   clock)
+        note = "issue not measured (loops not found)" if issue is None else (
+            f"{issue:.3f} warp instructions a clock at the max clock "
+            f"({issue / 4 * 100:.1f}% of one SM's 4 issue slots)")
+        return b, (f"{len(seq)} visits, {slots:.3f} slots tested a visit "
+                   f"(those below ni, of 16), {trips} leaf trips with "
+                   f"{rays:.1f} rays tested a trip (those its gate lets "
+                   f"through, of 512) in {work['leaf_passes']} warp passes "
+                   f"of {work['leaf_warps']} warp trips, {note}, finite "
+                   f"outputs {fin[0] * 100:.2f}% / {fin[1] * 100:.2f}% "
+                   f"(script / varied inputs)"), dict(
+            leaf_trips=trips, slots_tested=slots, leaf_rays=rays,
+            leaf_passes=work["leaf_passes"], issue_per_clock=issue), all(
             (f > 0.0) == leaves for f in fin)
 
     return check_drain_probe(
@@ -2752,10 +2768,69 @@ def phase_device(ds, settings, stats: dict, frame: list) -> dict:
         out["frame_" + mode] = dict(launches=len(mine), ms=ms,
                                     device_ms=None if dev is None
                                     else dev * len(mine))
+    out["f3"] = f3_on_frame(ds, frame, modes, depth)
     if not ok:
         raise AssertionError("the bvh8t walk disagrees with its plain "
                              "version on the frame's bounce-2 rays")
     return out
+
+
+def f3_on_frame(ds, frame: list, modes: list, depth: int) -> dict:
+    """How often the frame's own rays meet fault F3 (ROADMAP section 3):
+    every kept bvh8t batch through K3 as well, the brute force, which
+    culls no box. Per bounce, summed over the samples: the closest-hit
+    lanes where K1 and K3 differ beyond equal-t ties (another winner at
+    the same t), of them the hit-bit mismatches, and the any-hit bits where
+    K2 and K3 differ; the first few such lanes are printed. A measurement:
+    it changes no check."""
+    from tpu_raytracing_torch.ops.traverse_kernels import WALKS
+
+    t_start = time.perf_counter()
+    per, shown, closest = {}, 0, -1
+    for b, mode in zip(frame, modes):
+        closest += mode == "closest_hit"
+        bounce = closest % depth  # an any-hit batch follows its bounce's
+        tk, bk = WALKS["bvh8t"](ds, *b)
+        t3, b3 = WALKS["brute"](ds, *b)
+        hit_k, hit_3 = bk >= 0, b3 >= 0
+        bits = hit_k != hit_3
+        if mode == "closest_hit":
+            ties = (bk != b3) & hit_k & hit_3 & (tk == t3)
+            beyond = (bk != b3) & ~ties
+        else:
+            ties, beyond = torch.zeros_like(bits), bits
+        row = per.setdefault(bounce, {m: dict(rays=0, live=0, beyond=0,
+                                               hit_bits=0, ties=0)
+                                      for m in ("closest_hit", "any_hit")})
+        c = row[mode]
+        c["rays"] += int(b[0].shape[0])
+        c["live"] += int(b[4].sum())
+        c["beyond"] += int(beyond.sum())
+        c["hit_bits"] += int(bits.sum())
+        c["ties"] += int(ties.sum())
+        for i in torch.nonzero(beyond).flatten()[:max(0, 3 - shown)].tolist():
+            shown += 1
+            print(f"#   F3 lane, bounce {bounce} {mode}: o "
+                  f"{b[0][i].tolist()} d {b[1][i].tolist()} t_min "
+                  f"{float(b[2][i])!r} t_max {float(b[3][i])!r}: bvh8t "
+                  f"({float(tk[i])!r}, {int(bk[i])}), brute force "
+                  f"({float(t3[i])!r}, {int(b3[i])})", flush=True)
+    torch.cuda.synchronize()
+    for bounce, row in sorted(per.items()):
+        ch, ah = row["closest_hit"], row["any_hit"]
+        print(f"# F3 on the frame, bounce {bounce}: closest-hit {ch['live']} "
+              f"live of {ch['rays']} rays, {ch['beyond']} lanes where bvh8t "
+              f"and the brute force differ beyond {ch['ties']} equal-t ties "
+              f"({ch['hit_bits']} of them hit bits); any-hit {ah['live']} "
+              f"live of {ah['rays']}, {ah['hit_bits']} hit bits differ",
+              flush=True)
+    total = {m: sum(row[m][k] for row in per.values())
+             for m, k in (("closest_hit", "beyond"), ("any_hit", "hit_bits"))}
+    print(f"# F3 on the frame: {total['closest_hit']} closest-hit lanes "
+          f"beyond ties, {total['any_hit']} any-hit bits, over "
+          f"{len(frame)} batches ({time.perf_counter() - t_start:.1f} s, "
+          f"the brute force included)", flush=True)
+    return dict(per_bounce=per, **total)
 
 
 def kernel_entries(stats: dict, frame: dict, switch: dict,

@@ -734,6 +734,20 @@ def test_bf16_vpu_kernel_vs_plain(card, dtype):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# counts the kernel's unrolled loop (P4.UNROLL iterations a trip) does
+# not divide, so its remainder loop runs, and none at all
+@pytest.mark.parametrize("iters", [0, 1, 3, 257])
+@pytest.mark.parametrize("dtype", list(P4.DTYPES))
+def test_bf16_vpu_remainder_iterations(card, dtype, iters):
+    """P4 bit for bit where the iterations do not fill the unrolled loop."""
+    assert iters % P4.UNROLL or iters == 0
+    box, ray = P4.script_inputs("cuda")[dtype]
+    got = P4.bf16_vpu(box, ray, iters)
+    want = P4.bf16_vpu_plain(box, ray, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_probes_reject_what_the_kernels_do_not_take(card):
     ins = P3.script_inputs("cuda")
     with pytest.raises(ValueError, match="compiled for"):
@@ -812,6 +826,20 @@ def test_walk_cost_kernel_vs_plain(card, level, inputs):
     assert len(seq) == PROBE_ITERS and len(set(seq.tolist())) > 1
     fin = torch.isfinite(want)
     assert bool(fin.any()) == level.endswith("50")
+
+
+@pytest.mark.parametrize("inputs", ["script", "varied"])
+@pytest.mark.parametrize("level", P1.LEVELS)
+def test_walk_cost_without_visits(card, level, inputs):
+    """P1 bit for bit in output and stats when no visits buffer is given
+    (the kernel then writes none), at a count past the node table's 256
+    nodes."""
+    ins = _inputs(P1, inputs)
+    got, sk = P1.walk_cost(*ins, level, 300)
+    want, sp = P1.walk_cost_plain(*ins, level, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(sk, sp) and int(sp[0]) == 300
 
 
 def test_slab_walk_reject_what_the_kernels_do_not_take(card):

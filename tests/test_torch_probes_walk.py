@@ -18,6 +18,10 @@ tests/test_torch_cuda.py.
 Tolerance: none. Outputs are bit-equal, and the drain sequences equal, on
 the scripts' inputs and on a second seeded set whose drains vary from
 visit to visit.
+
+Two facts P1's CUDA kernel relies on are held here too: the slots at or
+past a node's child count are dead (the kernel does not test them), and
+its leaf fold, in lane order, equals group()'s fold in row order.
 """
 import functools
 import importlib.util
@@ -288,3 +292,154 @@ def test_mains_default_to_the_card():
     for main in (P2.main, P1.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main([])
+
+
+def _dead_slots_filled(ins, level):
+    """The node table with the box of every slot at or above the visit's
+    slot count (8 at the slab level, else min(ni, 16) from the node's meta
+    row) replaced by a box that every ray of the inputs hits."""
+    nodes, meta = ins[0].clone(), ins[2]
+    for nid in range(P1.NODES):
+        ni = 8 if level == "slab" else int(meta[nid, 0]) & 31
+        for w in range(min(ni, P1.W), P1.W):
+            row, s = (nid // 16) * P1.W + w, (nid % 16) * 8
+            nodes[row, s:s + 3] = -1e6
+            nodes[row, s + 3:s + 6] = 1e6
+    return [nodes, *ins[1:]]
+
+
+@pytest.mark.parametrize("inputs", list(INPUTS))
+@pytest.mark.parametrize("level", P1.LEVELS)
+def test_walk_cost_slots_past_ni_are_dead(scripts, run_pallas, level,
+                                          inputs):
+    """Only the slots below a visit's slot count reach anything the probe
+    returns: with boxes that every ray hits in all the others, the script's
+    Pallas probe and the plain version give the output and every visit's
+    drained mask (and the plain version the stats) of the original table,
+    bit for bit. So the kernel, which tests those slots only, computes what
+    the script does."""
+    mod = scripts["probe_walk_cost"]
+    ins = getattr(P1, INPUTS[inputs])()
+    filled = _dead_slots_filled(ins, level)
+    want, seq, stats = _plain(P1.walk_cost_plain, ins, level)
+    got, seq2, stats2 = _plain(P1.walk_cost_plain, filled, level)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert seq2 == seq and stats2 == stats
+    pallas, drains = run_pallas(mod, mod.make(level),
+                                *(x.numpy() for x in filled))
+    np.testing.assert_array_equal(pallas.view(np.int32), want.view(np.int32))
+    assert drains == seq
+    # every ray hits the filled boxes: here those of the first node with
+    # fewer than 16 slots
+    counts = [8 if level == "slab" else int(m) & 31 for m in ins[2][:16, 0]]
+    nid = next(i for i, n in enumerate(counts) if n < P1.W)
+    ni, s = counts[nid], nid * 8
+    box = filled[0][:P1.W, s:s + 6]
+    t0, t1 = common.slab(box, ins[3].reshape(3, P1.R, P1.LANE),
+                         1.0 / ins[4].reshape(3, P1.R, P1.LANE))
+    hit = (t0 <= t1) & (t1 >= ins[5][:, None, :])
+    assert hit[:, ni:, :].all()
+
+
+def _lane_order_fold(ok, t, ids):
+    """The kernel's leaf fold (probe_walk_cost.cu::leaf_trip) in plain
+    PyTorch: a warp half's 16 lanes hold one ray's rows, lane j row j,
+    folded as the butterfly __shfl_xor_sync(8, 4, 2, 1) folds them: fminf
+    of t over the lanes, then the least id of the lanes whose accepted t
+    equals it, and their count. ok, t (..., 16, LANE), ids (16,) int32.
+    Returns (t, id, ties), each (..., LANE)."""
+    lanes = torch.arange(common.LG)
+    tg = torch.where(ok, t, float("inf"))
+    for m in (8, 4, 2, 1):
+        tg = torch.fmin(tg, tg[..., lanes ^ m, :])
+    tie = ok & (t == tg)
+    idb = ids.to(torch.int64)[:, None].expand_as(t)
+    id_ = torch.where(tie, idb, (1 << 31) - 1)
+    for m in (8, 4, 2, 1):
+        id_ = torch.minimum(id_, id_[..., lanes ^ m, :])
+    return tg[..., 0, :], id_[..., 0, :], tie.sum(dim=-2)
+
+
+def _fold_matches_group(tris, o, d, t_min, t_best, best, block, shift, gate):
+    """The lane-order fold's (t_best, best) against common.group's."""
+    ids = tris.contiguous().view(torch.int32)
+    o4, d4 = o[:, :, None, :], d[:, :, None, :]
+    want_t, want_b = common.group(tris, ids, o4, d4, t_min[:, None, :], t_best,
+                                  best, block, shift, gate=gate)
+    *_, ok, t = common.mt_rows(tris, o4, d4, t_min[:, None, :], t_best, block,
+                               shift)
+    ok = ok & gate[:, None, :]
+    row_ids = ids[block * common.LG:(block + 1) * common.LG,
+                  (shift + 9) % common.LANE]
+    tg, idw, ties = _lane_order_fold(ok, t, row_ids)
+    take = tg < float("inf")
+    got_b = torch.where(ties == common.LG, idw,
+                        torch.clamp(idw, max=common.NO_ID)).to(torch.int32)
+    got_t = torch.where(take, tg, t_best)
+    got_b = torch.where(take, got_b, best)
+    assert torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(got_b, want_b)
+    return int(take.sum())
+
+
+@pytest.mark.parametrize("inputs", list(INPUTS))
+def test_lane_order_leaf_fold_equals_group(inputs):
+    """The kernel's cooperative leaf fold, in lane order, gives group()'s
+    row-order fold bit for bit on each input set's leaf trips: every
+    triangle group, each ray gated on its hit of the visit's slot 0."""
+    nodes, tris, meta, o, d, t_min = getattr(P1, INPUTS[inputs])()
+    o3 = o.reshape(3, P1.R, P1.LANE)
+    d3 = d.reshape(3, P1.R, P1.LANE)
+    t_best = torch.full((P1.R, P1.LANE), float("inf"))
+    best = torch.full((P1.R, P1.LANE), -1, dtype=torch.int32)
+    hits = 0
+    for gq in range(P1.GROUPS):
+        t0, t1 = common.slab(nodes[gq:gq + 1, 0:6], o3, 1.0 / d3)
+        gate = ((t0 <= t1) & (t1 >= t_min[:, None, :]))[:, 0, :]
+        hits += _fold_matches_group(tris, o3, d3, t_min, t_best, best,
+                                    gq // 12, (gq % 12) * 10, gate)
+    assert hits > 0
+
+
+@pytest.mark.parametrize("high_ids", [False, True],
+                         ids=["ids_below_no_id", "ids_above_no_id"])
+@pytest.mark.parametrize("tied", [2, 15, 16])
+def test_lane_order_leaf_fold_ties(tied, high_ids):
+    """Crafted ties: `tied` rows of a block hold one triangle at t = 1
+    under different ids, the others a triangle at t = 2 or one the rays
+    miss; the kernel's lane-order fold gives group()'s winner, which is
+    the least tied id only when all 16 rows tie (else at most NO_ID), with
+    ids below and above NO_ID."""
+    rng = np.random.default_rng(tied)
+    tris = rng.standard_normal((common.LG, common.LANE)).astype(np.float32)
+    shift = 30
+    order = rng.permutation(common.LG)
+    base = (1 << 30) + 5 if high_ids else 40
+    ids = (base + rng.permutation(1000)[:common.LG]).astype(np.int32)
+    for j, row in enumerate(order):
+        z = 0.0 if j < tied else 1.0
+        p0 = [-1.0, -1.0, z] if j < tied or j % 2 else [10.0, 10.0, z]
+        tris[row, shift:shift + 9] = [*p0, 3.0, 0.0, 0.0, 0.0, 3.0, 0.0]
+        tris[row, shift + 9] = ids[j:j + 1].view(np.float32)[0]
+    tris = torch.from_numpy(tris)
+    R = 2
+    o = torch.zeros((3, R, common.LANE))
+    o[0] = torch.from_numpy(rng.uniform(-0.5, 0.5, (R, common.LANE)))
+    o[1] = torch.from_numpy(rng.uniform(-0.5, 0.5, (R, common.LANE)))
+    o[2] = -1.0
+    d = torch.zeros((3, R, common.LANE))
+    d[2] = 1.0
+    d[0, 1] = 1e-3  # row 1 slightly oblique: another t, same ties
+    t_min = torch.full((R, common.LANE), 1e-3)
+    t_best = torch.full((R, common.LANE), float("inf"))
+    best = torch.full((R, common.LANE), -1, dtype=torch.int32)
+    gate = torch.ones((R, common.LANE), dtype=torch.bool)
+    gate[:, ::7] = False
+    assert _fold_matches_group(tris, o, d, t_min, t_best, best, 0, shift,
+                               gate) == int(gate.sum())
+    _, want_b = common.group(tris, tris.view(torch.int32), o[:, :, None, :],
+                             d[:, :, None, :], t_min[:, None, :], t_best,
+                             best, 0, shift, gate=gate)
+    least = int(ids[:tied].min())
+    expect = least if tied == common.LG else min(least, common.NO_ID)
+    assert torch.all(want_b[gate] == expect)

@@ -286,6 +286,55 @@ def test_f3_box_entry_culls_a_hit_at_t_max(scenes, monkeypatch, walk):
     assert torch.all(plain(tds, *sub)[1] == -1)
 
 
+# three of the bench frame's camera rays (coated_diffuse_bunny, 500x500,
+# 8 spp) on which chip_smoke.py phase 12 finds the bvh8t walk and the brute
+# force apart: the pinhole at (0, 4.4, 0.4), t in [0.01, 1000]
+F3_CAMERA_DIRS = (
+    (0.24134749174118042, -0.9233184456825256, 0.2987213432788849),
+    (-0.1646970510482788, -0.9384512901306152, 0.30361825227737427),
+    (-0.2712153196334839, -0.9221281409263611, 0.2759021520614624))
+
+
+def test_f3_barycentric_margin_outside_the_boxes(scenes, monkeypatch):
+    """Fault F3, cause (c), on the renderer's own rays: Moller-Trumbore
+    accepts u + v up to 1 + 1e-5, so it hits a point just past a
+    triangle's edge, and so past the boxes that bound the triangle. A
+    camera ray that runs through the seam where the room's ceiling meets
+    its walls (u + v just above 1, the hit point past y = 1) has such a hit
+    and no other: the brute force, which culls no box, finds it at t near
+    3.6, and every walk over a tree loses it and misses, the JAX package's
+    bvh8t kernel as the port's plain versions."""
+    jds, tds = scenes["coated_diffuse_bunny"]
+    n = len(F3_CAMERA_DIRS)
+    o = np.tile(np.float32([0.0, 4.4, 0.4]), (n, 1))
+    d = np.float32(F3_CAMERA_DIRS)
+    rays = (o, d, np.full(n, 0.01, np.float32), np.full(n, 1000.0, np.float32),
+            np.ones(n, bool))
+    args = [torch.from_numpy(x) for x in rays]
+    tb, bb = TK.intersect_tris_brute_plain(tds, *args)
+    assert torch.all(bb >= 0) and torch.all((tb > 3.6) & (tb < 3.7))
+    for plain in (T8.intersect_tris_plain, *PLAINS.values()):
+        if plain is not TK.intersect_tris_brute_plain:
+            t, b = plain(tds, *args)
+            assert torch.all(b == -1) and torch.all(t == 1000.0)
+    _set_switch(monkeypatch, {})
+    _, p_b = intersect_tris_pallas(jds, *[jnp.asarray(x) for x in rays])
+    assert np.all(np.asarray(p_b) == -1)
+    # the brute force's rows: u + v past 1 by less than the margin
+    groups = (tds.t8_tris.reshape(-1, int(tds.meta.t8_leaf), 128)
+              [:, :, :TK.G8_PER_BLOCK * 10]
+              .reshape(-1, TK.G8_PER_BLOCK, 10).double().numpy())
+    rows = groups.reshape(-1, 10)
+    ids = rows[:, 9].astype(np.float32).view(np.int32)
+    for k in range(n):
+        p0, e1, e2 = np.split(rows[np.nonzero(ids == int(bb[k]))[0][0], :9], 3)
+        pv = np.cross(d[k], e2)
+        den = pv @ e1
+        tv = o[k] - p0
+        u, v = pv @ tv / den, np.cross(tv, e1) @ d[k] / den
+        assert 0.0 < u + v - 1.0 < 1e-5, (u, v)
+
+
 @pytest.mark.parametrize("env,walk", [
     ({}, "bvh8t"),
     ({"TPU_RT_PALLAS_KERNEL": "bvh8t"}, "bvh8t"),

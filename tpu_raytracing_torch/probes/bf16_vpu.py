@@ -37,7 +37,15 @@ from .common import best_ms, device_name, parse_args
 
 ITERS = 20000           # as in the script
 SHAPE = (16, 128)
-THREADS = 1024          # the kernel's one block: 2 elements a thread
+_SRC = "probe_bf16_vpu.cu"
+# the kernel's iterations a loop trip, its chains a thread a type, and so
+# the threads of its one block
+UNROLL = common.source_int(_SRC, "constexpr int kUnroll")
+CHAINS = {"float32": common.source_int(
+              _SRC, "template <> constexpr int kChains<float2>"),
+          "bfloat16": common.source_int(
+              _SRC, "template <typename V> constexpr int kChains")}
+THREADS = {name: 1024 // c for name, c in CHAINS.items()}
 OPS_PER_ELEMENT = 11    # needed per iteration: mul, add, one axis pass
                         # (add, sub, 2 mul, 2 min, 2 max), mul
 WRITTEN_OPS = 27        # as written: the axis pass 3 times
@@ -100,9 +108,20 @@ def script_inputs(device="cpu"):
 
 def loop_instructions(dtype: str) -> Counter | None:
     """Opcodes of the kernel's loop body in SASS for one type (cuobjdump on
-    the built library); None where it is not found."""
+    the built library): UNROLL iterations of each of a thread's
+    CHAINS[dtype] chains; None where it is not found."""
     tag = "14__nv_bfloat162" if dtype == "bfloat16" else "6float2"
     return common.loop_instructions(f"probe_bf16_vpuI{tag}E")
+
+
+def issue_per_clock(dtype: str, sass: Counter, iters: int, ms: float,
+                    clock: float) -> float:
+    """The kernel's warp instructions a clock at `clock` Hz over a run of
+    `ms` at `iters` iterations, from its loop body in SASS (`sass`,
+    loop_instructions): a loop trip runs UNROLL iterations of each of a
+    thread's chains, in THREADS[dtype] / 32 warps."""
+    return (sum(sass.values()) / UNROLL * THREADS[dtype] / 32 * iters
+            / (ms * 1e-3 * clock))
 
 
 def main(argv=None) -> list[dict]:
@@ -120,7 +139,8 @@ def main(argv=None) -> list[dict]:
               flush=True)
         sass = loop_instructions(name) if dev == "cuda" else None
         if sass is not None:
-            print(f"{name:>9}: loop body in SASS, {sum(sass.values())} "
+            print(f"{name:>9}: loop body in SASS ({UNROLL} iterations of "
+                  f"{CHAINS[name]} chain(s) a thread), {sum(sass.values())} "
                   f"instructions: {dict(sorted(sass.items()))}", flush=True)
         results.append(dict(dtype=name, ms=ms, iters=args.iters,
                             ns_per_op=ns_per_op,

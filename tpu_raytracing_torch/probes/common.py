@@ -224,11 +224,12 @@ def _sass(library: Path) -> str | None:
     return res.stdout if res.returncode == 0 else None
 
 
-def _branches(kernel: str):
+def _branches(kernel: str, library: Path | None = None):
     """(instructions as (address, opcode), branches as (address, target))
-    of the first function in the built library's SASS whose mangled name
-    holds `kernel`; None where cuobjdump or the function is not found."""
-    sass = _sass(native_cuda.library_path())
+    of the first function in the SASS of `library` (default: the built
+    library) whose mangled name holds `kernel`; None where cuobjdump or the
+    function is not found."""
+    sass = _sass(library or native_cuda.library_path())
     if sass is None:
         return None
     for section in sass.split("Function : ")[1:]:
@@ -256,15 +257,16 @@ def _widest(spans):
     return max(spans, key=lambda span: span[1] - span[0])
 
 
-def loop_instructions(kernel: str, inner: bool = False):
+def loop_instructions(kernel: str, inner: bool = False,
+                      library: Path | None = None):
     """Opcodes of a kernel's loop body in SASS, from cuobjdump on the built
-    library: in the first function whose mangled name holds `kernel`, the
-    instructions from the target of a backward branch to the branch, for
-    the branch that spans most (an outer loop, its inner loops included
-    once). None where cuobjdump or a loop is not found. With `inner`, a
-    pair: that, and the opcodes of the widest loop inside it (None if it
-    holds none)."""
-    found = _branches(kernel)
+    library (or `library`): in the first function whose mangled name holds
+    `kernel`, the instructions from the target of a backward branch to the
+    branch, for the branch that spans most (an outer loop, its inner loops
+    included once). None where cuobjdump or a loop is not found. With
+    `inner`, a pair: that, and the opcodes of the widest loop inside it
+    (None if it holds none)."""
+    found = _branches(kernel, library)
     if found is None:
         return None
     ins, branches = found
@@ -281,6 +283,31 @@ def loop_instructions(kernel: str, inner: bool = False):
         return body, None
     ilo, ihi = _widest(inside)
     return body, Counter(o for a, o in ins if ilo <= a <= ihi)
+
+
+def source_int(source: str, decl: str) -> int:
+    """N of the line `<decl> = N;` in the kernel source csrc/<source>: a
+    kernel's layout, read where the kernel sets it."""
+    text = (native_cuda.CSRC / source).read_text()
+    m = re.search(re.escape(decl) + r"\s*=\s*(\d+);", text)
+    if m is None:
+        raise LookupError(f"{source}: no line `{decl} = N;`")
+    return int(m.group(1))
+
+
+def loops(kernel: str, library: Path | None = None) -> list[tuple]:
+    """Every loop of a kernel in SASS (the span from a backward branch's
+    target to the branch), widest first, as (first address, last address,
+    opcodes); an outer loop's opcodes include its inner loops'. Empty where
+    cuobjdump or the function is not found."""
+    found = _branches(kernel, library)
+    if found is None:
+        return []
+    ins, branches = found
+    spans = sorted({(b, a) for a, b in branches if b < a},
+                   key=lambda span: span[0] - span[1])
+    return [(lo, hi, Counter(o for a, o in ins if lo <= a <= hi))
+            for lo, hi in spans]
 
 
 def skipped_regions(kernel: str) -> list[Counter]:
