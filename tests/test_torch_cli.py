@@ -12,7 +12,7 @@ from tpu_raytracing.integrator.render import (
     render_single_pixel as jax_single_pixel,
 )
 from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
-from tpu_raytracing_torch import cli
+from tpu_raytracing_torch import cli, tracing
 from tpu_raytracing_torch.utils.exr import read_exr
 
 torch.set_num_threads(1)
@@ -65,6 +65,21 @@ def test_profile_writes_a_chrome_trace(in_tmp):
     assert code == 0
     trace = json.loads((in_tmp / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+def test_profile_traces_the_ports_spans(in_tmp, caplog):
+    """--profile turns the port's tracing on for the render: the trace
+    holds its rt. spans, and the host syncs are logged by site."""
+    with caplog.at_level("INFO", logger="tpu_raytracing_torch"):
+        code, _ = cli.run(["--scene-name", "checkered_plane", "-s", "1",
+                           "-d", "1", "--profile", "prof", "--backend",
+                           "cpu", "full"])
+    assert code == 0
+    trace = json.loads((in_tmp / "prof" / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"rt.pass", "rt.sample", "rt.bounce"} <= names
+    assert "host syncs at render.alive_any: 2" in caplog.text
+    assert not tracing.enabled()
 
 
 def _radiances(text: str) -> list:

@@ -12,7 +12,9 @@ the beauty exposure 1000. Outputs are written under ``scenes/output/``.
 
 `--backend cuda` (the default) renders on the card and raises without
 one; `--backend cpu` runs the plain versions on the host. `--profile DIR`
-writes a `torch.profiler` Chrome trace of the render to DIR/trace.json.
+writes a `torch.profiler` Chrome trace of the render to DIR/trace.json,
+with the port's own spans (tracing.py: rt.pass, rt.bounce, ...) turned on
+for it, and logs the host syncs by site.
 `-i` opens the settings form (tui.py) first. `-t` is accepted for the
 harness's sake and has no effect.
 
@@ -431,15 +433,25 @@ def _run(args):
     if args.profile is not None:
         from torch.profiler import ProfilerActivity, profile
 
+        from . import tracing
+
         acts = [ProfilerActivity.CPU]
         if device == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            out = _render(scene, settings, args, device)
+        tracing.reset()
+        tracing.enable()
+        try:
+            with profile(activities=acts) as prof:
+                out = _render(scene, settings, args, device)
+        finally:
+            tracing.disable()
         args.profile.mkdir(parents=True, exist_ok=True)
         trace = args.profile / "trace.json"
         prof.export_chrome_trace(str(trace))
         log.info("profiler trace written to %s", trace)
+        for name, n in sorted(tracing.snapshot().items()):
+            if name.startswith("sync."):
+                log.info("host syncs at %s: %d", name[5:], n)
     else:
         out = _render(scene, settings, args, device)
     if out is None:  # a rank other than 0

@@ -24,6 +24,7 @@ import torch
 
 from ..device.scene_buffers import DeviceScene
 from ..ops.rng import SamplerConfig
+from .. import tracing
 from ..settings import RaytracerSettings, RenderOutput
 from .render import (
     StaticSettings, _pixel_grid, _run_chunked, default_chunk, device_scene,
@@ -114,26 +115,33 @@ def render_accumulated(
     px, py, unmorton = _pixel_grid(width, height)
     chunk = chunk_pixels or default_chunk(device)
     while spp_done < total_spp:
-        t0 = time.perf_counter()
         this_chunk = min(spp_chunk, total_spp - spp_done)
-        parts, rays = [], 0
-        for size, (r, n) in _run_chunked(
-                lambda a, b, act: sample_sum(ds, cfg, st, a, b, spp_done,
-                                             this_chunk, act),
-                px, py, device, chunk):
-            parts.append(r[:size])
-            rays = rays + n
-        accum = accum + torch.cat(parts).cpu().numpy()
-        rays_total += int(rays)
-        spp_done += this_chunk
-        log.info("accumulated %d/%d spp (%.2fs)", spp_done, total_spp,
-                 time.perf_counter() - t0)
-        if checkpoint_path is not None:
-            write_checkpoint(checkpoint_path, accum, spp_done, rays_total,
-                             fingerprint, spp_chunk)
-        if on_chunk is not None:
-            on_chunk((accum[unmorton] / np.float32(spp_done)).reshape(
-                height, width, 3), spp_done)
+        with tracing.span("rt.pass", {"first": spp_done, "count": this_chunk}):
+            t0 = time.perf_counter()
+            parts, rays = [], 0
+            for size, (r, n) in _run_chunked(
+                    lambda a, b, act: sample_sum(ds, cfg, st, a, b, spp_done,
+                                                 this_chunk, act),
+                    px, py, device, chunk):
+                parts.append(r[:size])
+                rays = rays + n
+            with tracing.span("rt.accumulate"):
+                tracing.sync("accumulate.to_host")
+                accum = accum + torch.cat(parts).cpu().numpy()
+                tracing.sync("accumulate.rays")
+                rays_total += int(rays)
+                spp_done += this_chunk
+                log.info("accumulated %d/%d spp (%.2fs)", spp_done, total_spp,
+                         time.perf_counter() - t0)
+                if checkpoint_path is not None:
+                    write_checkpoint(checkpoint_path, accum, spp_done,
+                                     rays_total, fingerprint, spp_chunk)
+                if on_chunk is not None:
+                    image = (accum[unmorton] / np.float32(spp_done)).reshape(
+                        height, width, 3)
+            if on_chunk is not None:
+                with tracing.span("rt.callback"):
+                    on_chunk(image, spp_done)
 
     out = RenderOutput(width=width, height=height)
     out.beauty = (accum[unmorton] / np.float32(total_spp)).reshape(

@@ -52,6 +52,7 @@ from ..ops.traverse import hit_details, intersect_scene, occluded
 from ..settings import (
     AovFlags, RaytracerSettings, RenderOutput, SinglePixelOutput,
 )
+from .. import tracing
 
 log = logging.getLogger("tpu_raytracing_torch")
 
@@ -117,17 +118,19 @@ def _bounce(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
     f32 = ray_o.dtype
     kinds = ds.meta.mat_kinds_present
 
-    rays = s.rays + alive.sum()
+    tracing.count("lanes.run", Bb)
+    rays = s.rays + tracing.count("lanes.alive", alive.sum())
     if primary:
         t_min, t_max = ds.meta.near_clip, ds.meta.far_clip
     else:
         t_min, t_max = 1.0e-4, float("inf")
-    t, prim = intersect_scene(
-        ds, ray_o, ray_d,
-        torch.full((Bb,), t_min, dtype=f32, device=dev),
-        torch.full((Bb,), t_max, dtype=f32, device=dev),
-        active=alive,
-    )
+    with tracing.span("rt.traverse.closest"):
+        t, prim = intersect_scene(
+            ds, ray_o, ray_d,
+            torch.full((Bb,), t_min, dtype=f32, device=dev),
+            torch.full((Bb,), t_max, dtype=f32, device=dev),
+            active=alive,
+        )
     hit_mask = prim >= 0
     if ds.meta.has_env:
         miss = alive & ~hit_mask
@@ -171,33 +174,37 @@ def _bounce(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
     nee_mask = alive & ~B.is_delta_bsdf(params) & add_direct
 
     direct = torch.zeros((Bb, 3), dtype=f32, device=dev)
-    for li, lk in enumerate(ds.meta.light_kinds):
-        n_s = (1 if lk in (LIGHT_POINT, LIGHT_DIRECTION)
-               else st.light_sample_count)
-        contrib = torch.zeros((Bb, 3), dtype=f32, device=dev)
-        for _ in range(n_s):
-            ls, stream = sample_light(ds, li, hit.point, cfg, stream)
-            wi = _to_local(bx, by, hit.normal, -ls.direction)
-            cos_theta = torch.clamp(wi[..., 2], min=0.0)
-            shadow_act = nee_mask & (ls.pdf > 0.0) & (cos_theta > 0.0)
-            rays = rays + shadow_act.sum()
-            occ = occluded(
-                ds, ls.origin, ls.direction,
-                torch.full((Bb,), 1.0e-3, dtype=f32, device=dev),
-                ls.distance - 1.0e-3,
-                active=shadow_act,
-            )
-            good = shadow_act & ~occ
-            f = bsdf_eval(params, wo, wi, kinds, active=good)
-            safe_pdf = torch.where(ls.pdf == 0.0, 1.0, ls.pdf)
-            c = f * ls.radiance * (cos_theta / safe_pdf)[:, None]
-            contrib = contrib + torch.where(good[:, None], c, 0.0)
-        direct = direct + contrib / n_s
+    with tracing.span("rt.nee"):
+        for li, lk in enumerate(ds.meta.light_kinds):
+            n_s = (1 if lk in (LIGHT_POINT, LIGHT_DIRECTION)
+                   else st.light_sample_count)
+            contrib = torch.zeros((Bb, 3), dtype=f32, device=dev)
+            for _ in range(n_s):
+                ls, stream = sample_light(ds, li, hit.point, cfg, stream)
+                wi = _to_local(bx, by, hit.normal, -ls.direction)
+                cos_theta = torch.clamp(wi[..., 2], min=0.0)
+                shadow_act = nee_mask & (ls.pdf > 0.0) & (cos_theta > 0.0)
+                rays = rays + shadow_act.sum()
+                with tracing.span("rt.traverse.shadow"):
+                    occ = occluded(
+                        ds, ls.origin, ls.direction,
+                        torch.full((Bb,), 1.0e-3, dtype=f32, device=dev),
+                        ls.distance - 1.0e-3,
+                        active=shadow_act,
+                    )
+                good = shadow_act & ~occ
+                with tracing.span("rt.shade.eval"):
+                    f = bsdf_eval(params, wo, wi, kinds, active=good)
+                safe_pdf = torch.where(ls.pdf == 0.0, 1.0, ls.pdf)
+                c = f * ls.radiance * (cos_theta / safe_pdf)[:, None]
+                contrib = contrib + torch.where(good[:, None], c, 0.0)
+            direct = direct + contrib / n_s
     radiance = radiance + pw * direct
 
     # continuation via BSDF importance sampling
-    samp, stream = bsdf_sample(
-        params, wo, B.ALL_COMPONENTS, cfg, stream, kinds, active=alive)
+    with tracing.span("rt.shade.sample"):
+        samp, stream = bsdf_sample(
+            params, wo, B.ALL_COMPONENTS, cfg, stream, kinds, active=alive)
     ok = samp.valid & (samp.pdf > 0.0) & torch.any(samp.f != 0.0, dim=-1)
     alive = alive & ok
     alive3 = alive[:, None]
@@ -221,27 +228,36 @@ def _bounce(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
 def trace_radiance(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
                    px, py, sample_idx: int, active=None):
     """Radiance of one sample of each pixel; returns ((B, 3), rays (0-d))."""
-    stream = make_stream(px, py, sample_idx)
-    ray_o, ray_d, diff, stream = generate_rays(
-        ds, px, py, cfg, stream, st.samples_per_pixel, jitter=True)
-    Bb = px.shape[0]
-    dev = ray_o.device
-    alive0 = (torch.ones(Bb, dtype=torch.bool, device=dev) if active is None
-              else active)
-    s = _PathState(
-        ray_o=ray_o, ray_d=ray_d, alive=alive0,
-        specular=torch.ones(Bb, dtype=torch.bool, device=dev),
-        radiance=torch.zeros((Bb, 3), dtype=ray_o.dtype, device=dev),
-        path_weight=torch.ones((Bb, 3), dtype=ray_o.dtype, device=dev),
-        stream=stream,
-        rays=torch.zeros((), dtype=torch.int64, device=dev),
-    )
-    s = _bounce(ds, cfg, st, s, 0, True, diff)
-    depth = 1
-    while bool(s.alive.any()):
-        s = _bounce(ds, cfg, st, s, depth, False, None)
-        depth += 1
-    return s.radiance, s.rays
+    with tracing.span("rt.sample"):
+        stream = make_stream(px, py, sample_idx)
+        ray_o, ray_d, diff, stream = generate_rays(
+            ds, px, py, cfg, stream, st.samples_per_pixel, jitter=True)
+        Bb = px.shape[0]
+        dev = ray_o.device
+        alive0 = (torch.ones(Bb, dtype=torch.bool, device=dev)
+                  if active is None else active)
+        s = _PathState(
+            ray_o=ray_o, ray_d=ray_d, alive=alive0,
+            specular=torch.ones(Bb, dtype=torch.bool, device=dev),
+            radiance=torch.zeros((Bb, 3), dtype=ray_o.dtype, device=dev),
+            path_weight=torch.ones((Bb, 3), dtype=ray_o.dtype, device=dev),
+            stream=stream,
+            rays=torch.zeros((), dtype=torch.int64, device=dev),
+        )
+        with tracing.span("rt.bounce", {"depth": 0}):
+            s = _bounce(ds, cfg, st, s, 0, True, diff)
+        depth = 1
+        while _any_alive(s.alive):
+            with tracing.span("rt.bounce", {"depth": depth}):
+                s = _bounce(ds, cfg, st, s, depth, False, None)
+            depth += 1
+        return s.radiance, s.rays
+
+
+def _any_alive(alive) -> bool:
+    """The bounce loop's test: a host read of the device's lanes."""
+    tracing.sync("render.alive_any")
+    return bool(alive.any())
 
 
 def sample_sum(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
@@ -356,6 +372,7 @@ def _run_chunked(fn, px, py, device, chunk, active=None):
             act[:size] &= active[start:start + chunk]
         pad = np.zeros(chunk - size, np.int64)
         cpx, cpy = np.concatenate([cpx, pad]), np.concatenate([cpy, pad])
+        tracing.sync("render.chunk_to_device", 3)
         yield size, fn(torch.from_numpy(cpx).to(device),
                        torch.from_numpy(cpy).to(device),
                        torch.from_numpy(act).to(device))
@@ -414,14 +431,17 @@ def render(scene_or_device, settings: RaytracerSettings, device="cuda",
     if not settings.outputs & AovFlags.BEAUTY:
         return out
     t0 = time.perf_counter()
-    parts, rays = [], 0
-    for size, (r, n) in _run_chunked(
-            lambda a, b, act: render_beauty_chunk(ds, cfg, st, a, b, act),
-            px, py, device, chunk):
-        parts.append(r[:size])
-        rays = rays + n
-    beauty = torch.cat(parts).cpu().numpy()
-    out.rays_traced = int(rays)
+    with tracing.span("rt.pass", {"first": 0, "count": st.samples_per_pixel}):
+        parts, rays = [], 0
+        for size, (r, n) in _run_chunked(
+                lambda a, b, act: render_beauty_chunk(ds, cfg, st, a, b, act),
+                px, py, device, chunk):
+            parts.append(r[:size])
+            rays = rays + n
+        tracing.sync("render.to_host")
+        beauty = torch.cat(parts).cpu().numpy()
+        tracing.sync("render.rays")
+        out.rays_traced = int(rays)
     dt = time.perf_counter() - t0
     log.info("beauty pass took %.3fs (%d rays, %.1f Mrays/s)",
              dt, out.rays_traced, out.rays_traced / dt / 1e6)

@@ -22,6 +22,7 @@ from ..device.scene_buffers import (
     DeviceScene, MAT_COATED_DIFFUSE, MAT_DIFFUSE, MAT_ROUGH_CONDUCTOR,
     MAT_ROUGH_DIELECTRIC, MAT_SMOOTH_CONDUCTOR, MAT_SMOOTH_DIELECTRIC,
 )
+from .. import tracing
 from .complexmath import fresnel_complex
 from .linalg import cross, dot, normalize
 from .rng import sample_cosine_hemisphere, sample_unit_disk
@@ -45,7 +46,10 @@ _PI = math.pi
 
 def has_flag(allowed, flag, ref):
     """(allowed & flag) != 0 as a bool tensor; allowed: int or tensor."""
-    return torch.as_tensor((allowed & flag) != 0, device=ref.device)
+    on = (allowed & flag) != 0
+    if not isinstance(on, torch.Tensor):
+        tracing.sync("*.has_flag")  # a host bool copied to the device
+    return torch.as_tensor(on, device=ref.device)
 
 
 class BsdfParams(NamedTuple):

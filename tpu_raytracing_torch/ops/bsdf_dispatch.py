@@ -21,6 +21,7 @@ from ..device.scene_buffers import (
     MAT_COATED_DIFFUSE, MAT_DIFFUSE, MAT_ROUGH_CONDUCTOR, MAT_ROUGH_DIELECTRIC,
     MAT_SMOOTH_CONDUCTOR, MAT_SMOOTH_DIELECTRIC,
 )
+from .. import tracing
 from . import bsdf as B
 from .layered import layered_eval, layered_sample
 from .rng import SampleStream, SamplerConfig, hash_u32, sample_uniform, sample_uniform2
@@ -41,6 +42,7 @@ def _coated_lanes(params: B.BsdfParams, active):
     wanted = params.kind == MAT_COATED_DIFFUSE
     if active is not None:
         wanted = wanted & active
+    tracing.sync("dispatch.coated_lanes")
     return torch.nonzero(wanted)[:, 0]
 
 
@@ -75,7 +77,9 @@ def bsdf_eval(params: B.BsdfParams, wo, wi, kinds: Tuple[int, ...],
     if MAT_COATED_DIFFUSE in kinds:
         lanes = _coated_lanes(params, active)
         if lanes.numel():
-            f[lanes] = layered_eval(_take(params, lanes), wo[lanes], wi[lanes])
+            with tracing.span("rt.coat.eval"):
+                f[lanes] = layered_eval(_take(params, lanes), wo[lanes],
+                                        wi[lanes])
     return f
 
 
@@ -163,11 +167,13 @@ def bsdf_sample(
     if MAT_COATED_DIFFUSE in kinds:
         lanes = _coated_lanes(params, active)
         if lanes.numel():
-            draw_base = hash_u32(
-                stream.px[lanes], stream.py[lanes], stream.sample[lanes],
-                stream.dim[lanes], 0xC0A7ED,
-            )
-            s = layered_sample(_take(params, lanes), wo[lanes], draw_base)
-            for dst, src in zip(out, s):
-                dst[lanes] = src
+            with tracing.span("rt.coat.sample"):
+                draw_base = hash_u32(
+                    stream.px[lanes], stream.py[lanes], stream.sample[lanes],
+                    stream.dim[lanes], 0xC0A7ED,
+                )
+                s = layered_sample(_take(params, lanes), wo[lanes],
+                                   draw_base)
+                for dst, src in zip(out, s):
+                    dst[lanes] = src
     return out, stream

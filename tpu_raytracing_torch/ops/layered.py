@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from .. import tracing
 from ..device.scene_buffers import MAT_SMOOTH_DIELECTRIC
 from . import bsdf as B
 from .linalg import dot, make_orthonormal_basis
@@ -64,6 +65,7 @@ def _top_sample(params: B.BsdfParams, w, allowed, u2, u1) -> B.BsdfSample:
     lane takes is skipped, which leaves every lane's value unchanged)."""
     eta = params.eta[..., 0]
     smooth = params.top_kind == MAT_SMOOTH_DIELECTRIC
+    tracing.sync("coat.top_sample_kinds", 2)
     any_smooth, all_smooth = bool(smooth.any()), bool(smooth.all())
     if any_smooth:
         # the smooth path reads NONSPECULAR flags as their specular twins
@@ -90,6 +92,7 @@ def _top_sample(params: B.BsdfParams, w, allowed, u2, u1) -> B.BsdfSample:
 def _top_eval_pdf(params: B.BsdfParams, wo, wi, allowed):
     """(f, pdf) of the coat for (wo, wi); zero on smooth (delta) lanes."""
     smooth = params.top_kind == MAT_SMOOTH_DIELECTRIC
+    tracing.sync("coat.top_eval_pdf_kinds")
     if bool(smooth.all()):
         return torch.zeros_like(wo), torch.zeros_like(wo[..., 0])
     f, pdf = B.ts_eval_pdf(wo, wi, params.eta[..., 0], params.alpha_x,
@@ -100,6 +103,7 @@ def _top_eval_pdf(params: B.BsdfParams, wo, wi, allowed):
 
 def _top_eval(params: B.BsdfParams, wo, wi):
     smooth = params.top_kind == MAT_SMOOTH_DIELECTRIC
+    tracing.sync("coat.top_eval_kinds")
     if bool(smooth.all()):
         return torch.zeros_like(wo)
     f = B.ts_eval(wo, wi, params.eta[..., 0], params.alpha_x, params.alpha_y)
@@ -159,6 +163,7 @@ def layered_eval(params: B.BsdfParams, wo, wi):
         alive = ok
 
         for depth in range(MAX_DEPTH):
+            tracing.sync("coat.eval_alive")
             if not bool(alive.any()):
                 break  # nothing below changes a dead lane
             d0 = 8 + depth * 8
@@ -325,6 +330,7 @@ def layered_sample(params: B.BsdfParams, wo, draw_base) -> B.BsdfSample:
     out_comp = torch.zeros(pdf.shape, dtype=torch.int32, device=wo.device)
 
     for depth in range(MAX_DEPTH):
+        tracing.sync("coat.sample_walking")
         if not bool(walking.any()):
             break  # nothing below changes a lane that stopped walking
         d0 = 8 + depth * 8

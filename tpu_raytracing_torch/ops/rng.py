@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..sampling import Independent, Sampler, Stratified
 
 M32 = 0xFFFFFFFF
@@ -91,6 +92,7 @@ class SampleStream(NamedTuple):
 
 def make_stream(px, py, sample_index) -> SampleStream:
     px = px.to(torch.int64) & M32
+    tracing.sync("rng.stream_sample")  # a host int copied to the device
     sample = torch.as_tensor(sample_index, dtype=torch.int64, device=px.device)
     return SampleStream(
         px=px,
@@ -134,6 +136,7 @@ def kensler_permute(index, length: int, seed):
     out = round_fn(index)
     while True:
         outside = out >= length
+        tracing.sync("rng.permute_outside")
         if not bool(outside.any()):
             break
         out = torch.where(outside, round_fn(out), out)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..device.scene_buffers import DeviceScene
 from ..utils import raydump
 from .intersect import ray_aabb, ray_sphere, ray_triangle, sphere_hit_geom
@@ -134,6 +135,7 @@ def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
         is_inst = hit & (prim >= ds.meta.inst_vtri_base0)
         # the instances' id blocks are contiguous and ascending: the lane's
         # instance is the last whose vtri base is <= prim
+        tracing.sync("traverse.instance_bases")
         vbase, shade_off = torch.tensor(
             [[vb for _, vb, _, _ in instances],
              [so for *_, so in instances]],
@@ -168,6 +170,7 @@ def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
     )
     normal = torch.where((sh_ints[:, 2] != 0)[:, None], normalize(sn), geo_n)
     has_uv = (sh_ints[:, 3] != 0)[:, None]
+    tracing.sync("traverse.default_uv")
     default_uv = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]],
                               device=origin.device)
     uv0 = torch.where(has_uv, sh[:, 18:20], default_uv[0])
