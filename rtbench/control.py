@@ -32,7 +32,8 @@ def control_numbers(cell, seed: int, n_passes: int, device) -> dict:
                                int(cell.settings["check_pixels"]))
     window = cell.job.control_window(sc, config, cell.traffic, seed,
                                      n_passes, pixels)
-    return cell.job.compare(sc, config, window, pixels)
+    return cell.job.compare(sc, config, window, pixels,
+                            int(cell.settings["check_pairs"]), seed)
 
 
 def main(argv=None) -> int:

@@ -8,7 +8,8 @@
   traffic kind `kinds/traffic/<kind>.py` that drives the program's
   window and compares what it produced with the reference;
 - the cell's own settings: `cells/<workload>.json`, the check's pixels a
-  pass (`check_pixels`), the passes the traced run profiles
+  pass (`check_pixels`), the (pass, pixel) pairs the reference follows
+  at most in a run (`check_pairs`), the passes the traced run profiles
   (`trace_passes`), the warm-up passes of set-up (`warmup_passes`) and
   the limits of the numbers the check compares (`limits`);
 - each metric: a reader `metrics/<metric>.py` that defines

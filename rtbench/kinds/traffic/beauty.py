@@ -11,8 +11,12 @@ close the pass in flight completes and counts, and the job is cut there.
 
 The comparison (`compare`): what the window's passes produced, against
 the plain reference (reference/), at the check's pixels of every pass
-and on the traversal calls of the captured passes. Numbers compared,
-each against its limit in the cell's file:
+and on the traversal calls of the captured passes. The reference follows
+at most the cell's `check_pairs` (pass, pixel) pairs a run (`plan`), in
+calls of LANES_PER_BLOCK lanes across jobs: all of them while the window
+is short enough, else every pass at fewer pixels, and past K_MIN pixels
+a pass whole jobs; the captured passes always at every check pixel.
+Numbers compared, each against its limit in the cell's file:
 
 - camera_ray_err: the largest gap, over origin and direction components,
   between the camera rays the timed path handed its first closest-hit
@@ -20,15 +24,15 @@ each against its limit in the cell's file:
 - traversal_mismatch: the share of active lanes of the captured traversal
   calls whose answer differs from the reference's brute force on the same
   rays (harness/check.py);
-- radiance_mismatch: the share of (pass, pixel) whose radiance, as
+- radiance_mismatch: the share of compared (pass, pixel) whose radiance, as
   `sample_sum` returned it, differs from the reference's by more than
   L_RTOL of it plus L_ATOL;
 - radiance_mean_gap: the gap between the sums of all compared radiance,
   over the reference's;
-- accum_gap: the largest gap, over the jobs, between the image
+- accum_gap: the largest gap, over the compared jobs, between the image
   `render_accumulated` accumulated (its last mean times its samples) and
-  the sum of the reference's passes at the check's pixels, over the
-  latter;
+  the sum of the reference's passes at the pixels an uncaptured pass is
+  compared at, over the latter;
 - rays_counter_diff: the largest gap, over the captured passes, between
   `rays_traced` and the active lanes the pass handed traversal (exact);
 - rays_lane_mismatch: the share of the captured passes' compared pixels
@@ -42,7 +46,7 @@ from __future__ import annotations
 import itertools
 import math
 import time
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, NamedTuple
 
 import numpy as np
 import torch
@@ -57,6 +61,7 @@ M32 = 0xFFFFFFFF
 L_RTOL = 1e-3
 L_ATOL = 1e-6
 LANES_PER_BLOCK = 1 << 16
+K_MIN = 64  # the fewest check pixels an uncaptured pass is followed at
 NUMBERS = ("camera_ray_err", "traversal_mismatch", "radiance_mismatch",
            "radiance_mean_gap", "accum_gap", "rays_counter_diff",
            "rays_lane_mismatch")
@@ -134,9 +139,60 @@ def drive(prog, traffic: dict, seed: int, taps, pixels: np.ndarray,
     return Window(out, out[-1].end_s, accumulated, finite)
 
 
-def compare(sc, config: dict, window: Window, pixels: np.ndarray
+class Plan(NamedTuple):
+    """The (pass, pixel) pairs the reference follows."""
+
+    passes: List[int]  # the compared passes, in order
+    cols: np.ndarray   # the check pixels (columns) of an uncaptured pass
+    jobs: List[int]    # the compared jobs, each with all of its passes
+    pairs: int
+
+
+def plan(window: Window, K: int, budget: int, seed: int) -> Plan:
+    """Every pass at all K check pixels where the budget holds them; else
+    every pass at k = (budget less the captured passes) / (the others)
+    pixels of a seeded subset, the captured passes at all K; below K_MIN
+    pixels a pass, all passes of a seeded choice of whole jobs at K_MIN,
+    job 0, the last job and the captured passes' jobs always among them."""
+    recs = window.passes
+    n = len(recs)
+    every = list(range(n))
+    jobs = sorted({r.p.job for r in recs})
+    if n * K <= budget:
+        return Plan(every, np.arange(K), jobs, n * K)
+    cap = [r.captured is not None for r in recs]
+    c = sum(cap)
+    rng = np.random.default_rng([seed & M32, seed >> 32, 0xB0D6E7])
+    k = (budget - c * K) // max(n - c, 1)
+    if k >= K_MIN:
+        cols = np.sort(rng.choice(K, size=k, replace=False))
+        return Plan(every, cols, jobs, c * K + (n - c) * k)
+    k = min(K_MIN, K)
+    cols = np.sort(rng.choice(K, size=k, replace=False))
+    cost = dict.fromkeys(jobs, 0)
+    for r, on in zip(recs, cap):
+        cost[r.p.job] += K if on else k
+    chosen = {jobs[0], jobs[-1]} | {r.p.job for r, on in zip(recs, cap)
+                                    if on}
+    pairs = sum(cost[j] for j in chosen)
+    if pairs > budget:
+        raise ValueError(f"check_pairs {budget} holds not even the {pairs} "
+                         "pairs of the first, the last and captured jobs")
+    for j in rng.permutation([j for j in jobs if j not in chosen]):
+        if pairs + cost[j] <= budget:
+            chosen.add(int(j))
+            pairs += cost[j]
+    return Plan([i for i in every if recs[i].p.job in chosen], cols,
+                sorted(chosen), pairs)
+
+
+def compare(sc, config: dict, window: Window, pixels: np.ndarray,
+            budget: int, seed: int, stats: dict | None = None
             ) -> Dict[str, float]:
-    """The numbers compared (NUMBERS), for the window's passes."""
+    """The numbers compared (NUMBERS), for the window's passes, at most
+    `budget` (pass, pixel) pairs of them (`plan`, drawn from the run's
+    `seed`). `stats`, where given, gets what was followed and how long
+    the reference's calls took."""
     dev = sc.device
     s = config["settings"]
     width, depth, n_l = (s["width"], s["max_ray_depth"],
@@ -164,42 +220,55 @@ def compare(sc, config: dict, window: Window, pixels: np.ndarray
             bad, act = bad + b, act + a
     out["traversal_mismatch"] = bad / max(act, 1)
 
-    # the reference's radiance of every compared (pass, pixel), job by job
-    ref = np.zeros((len(window.passes), K, 3), np.float32)
-    ref_rays = np.zeros((len(window.passes), K), np.int64)
-    by_job: Dict[int, List[int]] = {}
-    for i, rec in enumerate(window.passes):
-        by_job.setdefault(rec.p.job, []).append(i)
-    for job, idx in by_job.items():
-        seed = window.passes[idx[0]].p.seed
-        samples = torch.as_tensor([window.passes[i].p.sample for i in idx],
-                                  device=dev)
-        lp = px.repeat(len(idx))
-        lq = py.repeat(len(idx))
-        ls = samples.repeat_interleave(K)
-        rad, rays = [], []
-        for a in range(0, lp.shape[0], LANES_PER_BLOCK):
-            b = slice(a, a + LANES_PER_BLOCK)
-            r, n = trace(sc, seed, Lanes(lp[b], lq[b], ls[b]), depth, n_l)
-            rad.append(r)
-            rays.append(n)
-        ref[idx] = torch.cat(rad).cpu().numpy().reshape(len(idx), K, 3)
-        ref_rays[idx] = torch.cat(rays).cpu().numpy().reshape(len(idx), K)
+    # the compared (pass, pixel) pairs, pass by pass, as one list of lanes
+    # whatever their jobs: each lane carries its job's seed
+    pl = plan(window, K, budget, seed)
+    every = np.arange(K)
+    cols = [every if window.passes[i].captured is not None else pl.cols
+            for i in pl.passes]
+    ps = [window.passes[i].p for i in pl.passes]
+    width_of = [len(c) for c in cols]
+    lane_pass = np.repeat(pl.passes, width_of)
+    lane_job = np.repeat([p.job for p in ps], width_of)
+    lane_col = np.concatenate(cols)
+    col = torch.as_tensor(lane_col, device=dev)
+    lanes = Lanes(px[col], py[col], *(
+        torch.as_tensor(np.repeat(v, width_of), device=dev)
+        for v in ([p.sample for p in ps], [p.seed for p in ps])))
+    rad, rays = [], []
+    t0 = time.perf_counter()
+    for a in range(0, lane_col.shape[0], LANES_PER_BLOCK):
+        block = Lanes(*(x[a:a + LANES_PER_BLOCK] for x in lanes))
+        r, n = trace(sc, 0, block, depth, n_l)
+        rad.append(r)
+        rays.append(n)
+    ref = torch.cat(rad).cpu().numpy()
+    ref_rays = torch.cat(rays).cpu().numpy()
+    if stats is not None:
+        stats.update(pairs=pl.pairs, passes=len(window.passes),
+                     k=len(pl.cols), jobs=len(pl.jobs),
+                     all_jobs=len({r.p.job for r in window.passes}),
+                     calls=len(rad), call_s=time.perf_counter() - t0)
 
-    prog = np.stack([r.values for r in window.passes])
+    prog = np.concatenate([window.passes[i].values[c]
+                           for i, c in zip(pl.passes, cols)])
     ok = np.abs(prog - ref) <= L_RTOL * np.abs(ref) + L_ATOL
     out["radiance_mismatch"] = float((~ok.all(axis=-1)).mean())
     ref_sum = float(ref.astype(np.float64).sum())
     out["radiance_mean_gap"] = abs(
         float(prog.astype(np.float64).sum()) - ref_sum) / max(ref_sum, 1e-30)
+    # a job's accumulated image against its passes at the subset's pixels
+    in_cols = np.isin(lane_col, pl.cols)
     gaps = []
-    for job, idx in by_job.items():
-        want = float(ref[idx].astype(np.float64).sum())
-        got = float(np.asarray(window.accumulated[job], np.float64).sum())
+    for job in pl.jobs:
+        want = float(ref[(lane_job == job) & in_cols]
+                     .astype(np.float64).sum())
+        got = float(np.asarray(window.accumulated[job], np.float64)[pl.cols]
+                    .sum())
         gaps.append(abs(got - want) / max(want, 1e-30))
     out["accum_gap"] = max(gaps)
     lanes = [(sum(c["active"].to(torch.int64) for c in rec.captured)
-              .cpu().numpy(), ref_rays[i])
+              .cpu().numpy(), ref_rays[lane_pass == i])
              for i, rec in enumerate(window.passes) if rec.captured]
     out["rays_lane_mismatch"] = float(np.mean(
         [got != want for got, want in lanes])) if lanes else 0.0

@@ -17,7 +17,7 @@ at the top of each bounce while it is alive, and each shadow ray walked.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,7 +27,7 @@ from .intersect import ray_sphere, ray_triangle, ray_triangle_edges, \
     sphere_hit_geom
 from .linalg import apply_point, apply_vector, apply_vector_transposed, \
     dot, make_orthonormal_basis, normalize
-from .rng import SamplerConfig, make_stream
+from .rng import M32, SamplerConfig, make_stream
 from .scene import RefScene
 
 INF = float("inf")
@@ -35,11 +35,14 @@ PAIRS_PER_BLOCK = 1 << 23  # ray-triangle pairs tested in one block
 
 
 class Lanes(NamedTuple):
-    """What the reference renders: one lane a (pixel, sample index)."""
+    """What the reference renders: one lane a (pixel, sample index), and
+    where given, the lane's own render seed (uint32 in int64) in place of
+    `trace`'s, so one call can follow lanes of many jobs."""
 
     px: torch.Tensor      # (B,) int64
     py: torch.Tensor      # (B,) int64
     sample: torch.Tensor  # (B,) int64
+    seed: Optional[torch.Tensor] = None  # (B,) int64
 
 
 class Hit(NamedTuple):
@@ -174,8 +177,12 @@ def trace(sc: RefScene, seed: int, lanes: Lanes, max_depth: int,
     """Radiance (B, 3) and rays traced (B,) of each lane's path.
     `on_query(closest, origin, direction, t_min, t_max, active, answer)`,
     where given, sees every scene query (answer: (t, prim) of a closest
-    hit, the occluded flags of a shadow query)."""
+    hit, the occluded flags of a shadow query). A lane's `seed`, where
+    `lanes` has them, keys its draws in place of `seed`: every draw hashes
+    (seed, pixel, sample, dimension) lane by lane (rng.py)."""
     cfg = SamplerConfig.independent(seed)
+    if lanes.seed is not None:
+        cfg = cfg._replace(seed=lanes.seed.to(torch.int64) & M32)
     o, d, stream = camera_rays(sc, cfg, lanes)
     n = o.shape[0]
     dev = o.device

@@ -166,11 +166,17 @@ def measure(cell, args, torch, on_card: bool) -> int:
           f"; rays {sum(r.rays for r in window.passes)}; setup {setup_s:.2f} s",
           file=sys.stderr)
     t_ref = time.perf_counter()
-    numbers = job.compare(sc, config, window, pixels)
+    followed = {}
+    numbers = job.compare(sc, config, window, pixels,
+                          int(knobs["check_pairs"]), seed, followed)
     correct = check.verdict(numbers, cell.limits, job.NUMBERS)
     import resource
     print(f"reference took {time.perf_counter() - t_ref:.2f} s; host peak "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} KiB",
+          file=sys.stderr)
+    print("reference followed {pairs} (pass, pixel) pairs of {passes} "
+          "passes, {k} pixels an uncaptured pass, {jobs} of {all_jobs} jobs,"
+          " in {calls} calls of {call_s:.2f} s".format(**followed),
           file=sys.stderr)
 
     found = loaded_forbidden()

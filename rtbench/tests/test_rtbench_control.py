@@ -3,16 +3,25 @@ program's place, in TF32) and a run with the timed path broken
 underneath, once for each fault a render cell can have (a pass that
 returns the state unchanged, half of the frame left out, an answer
 altered where it is produced: a BSDF value, a traversal answer, the ray
-counter, the accumulated image). Cells are cut to a few pixels so the CPU holds them."""
+counter, the accumulated image). Each of them fails in each regime of
+the check's budget of (pass, pixel) pairs too: under it, every pass at
+fewer pixels, and whole jobs. Cells are cut to a few pixels so the CPU
+holds them."""
 import importlib
 
 import numpy as np
 import pytest
 import torch
 
-from rtbench_helpers import SEED, run_cell, tiny_cell
+from harness import check
+from rtbench_helpers import SEED, program_window, regimes, run_cell, \
+    short_jobs, tiny_cell
 
 CELLS = [("rough_dielectric-beauty", 12), ("bunny-beauty", 8)]
+# K > K_MIN pixels; the rough cell's five passes over three jobs of two
+# reach every regime, the bunny's three passes of one job all but whole jobs
+WIDER = [("rough_dielectric-beauty", 12, 2, 5, ("under", "pixels", "jobs")),
+         ("bunny-beauty", 10, 32, 3, ("under", "pixels"))]
 
 
 @pytest.mark.parametrize("name,width", CELLS)
@@ -102,12 +111,48 @@ def fault_accumulated(monkeypatch):
     monkeypatch.setattr(mod, "render_accumulated", off)
 
 
-@pytest.mark.parametrize("fault", [fault_unchanged, fault_half,
-                                   fault_altered, fault_walk, fault_counter,
-                                   fault_accumulated])
+FAULTS = [fault_unchanged, fault_half, fault_altered, fault_walk,
+          fault_counter, fault_accumulated]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("name,width", CELLS)
 def test_broken_program_is_not_correct(fault, name, width, monkeypatch,
                                        capsys):
     fault(monkeypatch)
     res = run_cell(tiny_cell(name, width), capsys, seconds=0.5)
     assert res["correct"] is False
+
+
+def _fails_in_every_regime(cell, window, pixels, sc, names) -> None:
+    n, K = len(window.passes), pixels.shape[0]
+    for regime, budget in regimes(cell, n, K).items():
+        if regime not in names:
+            continue
+        numbers = cell.job.compare(sc, cell.config, window, pixels, budget,
+                                   SEED)
+        assert not check.verdict(numbers, cell.limits, cell.job.NUMBERS), \
+            (regime, numbers)
+
+
+@pytest.mark.parametrize("name,width,job_spp,n,names", WIDER)
+def test_control_fails_in_every_regime(name, width, job_spp, n, names):
+    from reference.scene import RefScene
+    cell = short_jobs(name, width, job_spp)
+    s = cell.config["settings"]
+    sc = RefScene(cell.config["scene"], width, width, cell.root, "cpu")
+    pixels = check.pick_pixels(SEED, width, width, width * width)
+    window = cell.job.control_window(sc, cell.config, cell.traffic, SEED, n,
+                                     pixels)
+    assert s["width"] == width
+    _fails_in_every_regime(cell, window, pixels, sc, names)
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+@pytest.mark.parametrize("name,width,job_spp,n,names", WIDER)
+def test_broken_program_fails_in_every_regime(fault, name, width, job_spp,
+                                              n, names, monkeypatch):
+    fault(monkeypatch)
+    cell = short_jobs(name, width, job_spp)
+    window, pixels, sc = program_window(cell, n)
+    _fails_in_every_regime(cell, window, pixels, sc, names)
