@@ -30,10 +30,19 @@ Phases (any failure exits nonzero and prints no result):
    sizes, the brute kernel's times beside those before its redesign
    (`BRUTE_BEFORE`), and the bvh8t, quad, quadrow, pair and skip-link
    kernels' beside those of commit 5695c8b (`WALK_BEFORE`);
+3b. coat kernel: the coat's layered walk (csrc/layered_walk.cu) against
+   its plain twins (ops/layered.py) bit for bit on every coat call of one
+   1-spp 500x500 bunny pass (4 light samples, depth 8: the benchmark's
+   lane counts), each kind's calls timed (the kernel by CUDA events, the
+   plain twin once) beside a bound from the f32 operations of the depth
+   steps the lanes began, with ptxas's registers and spills;
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
-   one light sample on cuda, through the bvh8t kernel (launch counts reset
-   just before, read just after). A copy of every ray batch the frame hands
-   the walk is kept for phase 12, and the frame for phase 9;
+   one light sample on cuda, through the bvh8t kernel and the coat kernel
+   (the launch counts of both reset just before, read just after, each
+   kernel's above 0). A copy of every ray batch the frame hands the walk
+   is kept for phase 12, and the frame for phase 9; then the scene at its
+   builtin settings (32 spp, 4 light samples), its coat kernel launches
+   read the same way, for phase 9;
 5. slice parity: two blocks of 4,096 Morton-order pixels (2 spp, depth 8),
    one of walls and floor and one mostly on the bunny, on cuda with the
    kernels against cpu with the plain versions;
@@ -83,8 +92,9 @@ Phases (any failure exits nonzero and prints no result):
    port's committed references name (tpu_raytracing_torch/rttest/
    references: a digest of the JAX package's CPU renders, and the normals
    rows' EXRs), each held against its reference with the rttest harness's
-   statistical gate at its default tolerances: phase 4's bunny (8 spp, one
-   light sample, depth 8), and phase 7's five sphere beauty scenes,
+   statistical gate at its default tolerances: phase 4's bunnies (8 spp,
+   one light sample, depth 8; 32 spp, 4 light samples), and phase 7's
+   five sphere beauty scenes,
    checkered_plane, environment_light and the sphere, cube and
    cube_orthographic normals at their builtin settings; then the harness
    itself, `python -m tpu_raytracing_torch.rttest cuda`, on one row
@@ -212,6 +222,19 @@ WALK_BEFORE = dict(commit="5695c8b", card="NVIDIA H100 80GB HBM3, 700.00 W",
                    ms={"bvh8t": (0.1098, 0.0905), "quad": (0.0893, 0.0876),
                        "quadrow": (0.0917, 0.0892), "pair": (0.1125, 0.1117),
                        "walk": (0.1277, 0.1012)})
+# the coat kernel (csrc/layered_walk.cu): its calls at the bunny's lane
+# counts are those of one 1-spp pass at the benchmark's settings (500x500,
+# 4 light samples, depth 8). Its bound counts, from the source, the f32
+# operations of a depth step a lane begins (the `steps` that
+# ops/layered.py's `_eval_kernel` and `_sample_kernel` return) in its
+# cheapest case: eval a step over a smooth coat's top (the flight 7, the
+# transit 2, the smooth reflection 25, beta 9), sample a step on the
+# bottom (the flight 7, the transit 2, the diffuse sample 12, f and pdf
+# 7); divides, square roots and transcendentals count one
+COAT_SETTINGS = dict(samples_per_pixel=1, light_sample_count=4,
+                     max_ray_depth=8)
+COAT_STEP_OPS = {"eval": 43, "sample": 28}
+COAT_LANE_BYTES = {"eval": 88, "sample": 105}  # read once, written once
 MAX_TIE_FRACTION = 1e-4
 # axis rays from snapped box planes often run through a shared vertex or
 # edge, where two walks that order leaves differently may pick different
@@ -327,7 +350,7 @@ P2_OPS = {
 # rows of phase 7's frames (their suite names), and the row the harness
 # itself renders through the CLI subprocess
 BENCH_ROW = "coated_diffuse_bunny_8spp"
-GATE_ROWS = (BENCH_ROW, *BEAUTY_SCENES, "checkered_plane",
+GATE_ROWS = (BENCH_ROW, SCENE, *BEAUTY_SCENES, "checkered_plane",
              "environment_light", *AOV_SCENES)
 HARNESS_ROW = "checkered_plane"
 # the multi-gpu phase: tests/test_parallel.py's 37x27 checkered_plane
@@ -926,10 +949,129 @@ def phase_kernel(ds, settings, ptxas_log: str) -> dict:
     return stats
 
 
+def coat_calls(scene, settings) -> list:
+    """Every coat call of one render of `scene` on cuda, its inputs cloned
+    as the dispatch hands them over: (kind, params, wo, wi or draw_base),
+    kind "eval" or "sample"."""
+    from unittest import mock
+
+    from tpu_raytracing_torch.integrator.render import render
+    from tpu_raytracing_torch.ops import bsdf_dispatch as D
+    from tpu_raytracing_torch.ops import layered as L
+
+    calls = []
+
+    def recorder(kind, fn):
+        def run(params, wo, third):
+            calls.append((kind, type(params)(*(x.clone() for x in params)),
+                          wo.clone(), third.clone()))
+            return fn(params, wo, third)
+        return run
+
+    with mock.patch.object(D, "layered_eval",
+                           recorder("eval", L.layered_eval)), \
+            mock.patch.object(D, "layered_sample",
+                              recorder("sample", L.layered_sample)):
+        render(scene, settings)
+    return calls
+
+
+def coat_outputs(kind: str, out) -> tuple:
+    return (out,) if kind == "eval" else tuple(out)
+
+
+def phase_coat(scene, card: str, ptxas_log: str) -> list:
+    """The coat kernel against its plain twins on every coat call of one
+    1-spp bunny pass (COAT_SETTINGS), bit for bit; each kind's calls timed
+    (the kernel by CUDA events, the plain twin once) and bounded; ptxas's
+    registers and spills. Returns the two {"kernels": [...]} entries,
+    whose launches main() fills in from phase 4's frames."""
+    from tpu_raytracing_torch.ops import layered as L
+    from tpu_raytracing_torch.settings import AovFlags, RaytracerSettings
+
+    reports = ptxas_report(ptxas_log, "layered_")
+    for r in reports:
+        r["instance"] = re.search(r"layered_(eval|sample)_kernel",
+                                  r["entry"]).group()
+        print(f"# ptxas {r['instance']}: {r.get('registers')} registers, "
+              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spill "
+              f"stores / loads, {r.get('stack_frame')} bytes stack frame",
+              flush=True)
+    settings = RaytracerSettings(outputs=AovFlags.BEAUTY, **COAT_SETTINGS)
+    calls = coat_calls(scene, settings)
+    kernel = {"eval": L.layered_eval, "sample": L.layered_sample}
+    counted = {"eval": L._eval_kernel, "sample": L._sample_kernel}
+    plain = {"eval": L.layered_eval_plain, "sample": L.layered_sample_plain}
+    ok, entries = True, []
+    for kind in ("eval", "sample"):
+        mine = [c[1:] for c in calls if c[0] == kind]
+        lanes = [c[1].shape[0] for c in mine]
+        k_ms, p_ms, steps_all, kind_ok = [], [], [], True
+        for args in mine:
+            steps = torch.zeros(args[1].shape[0], dtype=torch.int32,
+                                device=args[1].device)
+            got = coat_outputs(kind, counted[kind](*args, steps=steps))
+            want, ms = plain_run(lambda: plain[kind](*args))
+            p_ms.append(ms)
+            for g, w in zip(got, coat_outputs(kind, want)):
+                same, _, report = bits_compare(
+                    *(x.to(torch.int32) if x.dtype == torch.bool else x
+                      for x in (g, w)))
+                if not same:
+                    print(f"# coat {kind} on {args[1].shape[0]} lanes: "
+                          f"{report}: FAIL", flush=True)
+                kind_ok = kind_ok and same
+            k_ms.append(time_ms(lambda: kernel[kind](*args), 5))
+            steps_all.append(int(steps.sum()))
+        n_lanes = sum(lanes)
+        ops = sum(steps_all) * COAT_STEP_OPS[kind]
+        bound_ms, bound_by = bound_entry(
+            ops, n_lanes * COAT_LANE_BYTES[kind], FP32_OPS_PER_S)
+        kms, pms = sum(k_ms), sum(p_ms)
+        print(f"# coat {kind}: {len(mine)} calls of {min(lanes)}-"
+              f"{max(lanes)} lanes ({n_lanes} in all), bit for bit with the "
+              f"plain twin: {'ok' if kind_ok else 'FAIL'}; kernel "
+              f"{kms / len(mine):.4f} ms a call, plain twin "
+              f"{pms / len(mine):.1f} ms a call "
+              f"({pms / kms:.0f}x); {sum(steps_all) / n_lanes:.2f} depth "
+              f"steps a lane; bound {bound_ms / len(mine):.5f} ms a call "
+              f"(by {bound_by}), {bound_ms / kms * 100:.3f}% of the kernel "
+              f"time; on {card}", flush=True)
+        entries.append(dict(
+            name=f"layered_{kind}_kernel", route="cuda",
+            source=CSRC + "layered_walk.cu",
+            replaces="none: XLA code (tpu_raytracing/ops/layered.py)",
+            pass_calls=len(mine), lanes=lanes, ms=kms / len(mine),
+            plain_ms=pms / len(mine), bound_ms=bound_ms / len(mine),
+            bound_by=bound_by, steps_per_lane=sum(steps_all) / n_lanes,
+            ptxas=[r for r in reports if kind in r["instance"]],
+            library_ms=None,
+            library="none: no PyTorch call computes a layered BSDF"))
+        ok = ok and kind_ok
+    if not ok:
+        raise AssertionError("the coat kernel disagrees with its plain twin")
+    return entries
+
+
 def launch_counts() -> dict:
     from tpu_raytracing_torch.ops.traverse_kernels import WALKS
 
     return {w: dict(fn.launches) for w, fn in WALKS.items()}
+
+
+def coat_launches(render_frame) -> tuple:
+    """Run render_frame() with the coat kernel's launch counts set to 0
+    just before and read just after; returns (its result, {"eval": n,
+    "sample": n}), and raises if either kernel never launched."""
+    from tpu_raytracing_torch.ops import layered as L
+
+    L.layered_eval.launches = L.layered_sample.launches = 0
+    out = render_frame()
+    counts = {"eval": L.layered_eval.launches,
+              "sample": L.layered_sample.launches}
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a coat kernel never launched: {counts}")
+    return out, counts
 
 
 @contextlib.contextmanager
@@ -1018,7 +1160,7 @@ def phase_full_frame(scene, settings, card: str, store: list,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with kept_batches("bvh8t", store):
-        out = render(scene, settings)
+        out, coat = coat_launches(lambda: render(scene, settings))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -1029,7 +1171,8 @@ def phase_full_frame(scene, settings, card: str, store: list,
           f"{wall:.3f} s wall (scene compile and the batch copies "
           f"included), {out.rays_traced} "
           f"rays, {out.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; "
-          f"mean {mean:.6g}; launches {launches['bvh8t']}", flush=True)
+          f"mean {mean:.6g}; launches {launches['bvh8t']}, coat kernel "
+          f"launches {coat}", flush=True)
     if not np.isfinite(img).all():
         raise AssertionError("non-finite beauty pixels")
     if not mean > 0.0:
@@ -1037,7 +1180,27 @@ def phase_full_frame(scene, settings, card: str, store: list,
     if min(launches["bvh8t"].values()) <= 0:
         raise AssertionError(f"a kernel mode never launched: {launches}")
     frames[BENCH_ROW] = ("RGB", img, settings)
-    return launches["bvh8t"]
+
+    # the suite's own row of the scene, at its builtin settings (32 spp, 4
+    # light samples), which the coat kernel makes short enough to render
+    from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+    from tpu_raytracing_torch.settings import AovFlags
+
+    builtin = get_test_scene(SCENE).settings_func()
+    builtin.outputs |= AovFlags.BEAUTY
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, coat_builtin = coat_launches(lambda: render(scene, builtin))
+    wall = time.perf_counter() - t0
+    print(f"# full frame at the builtin settings, "
+          f"{builtin.samples_per_pixel} spp, {builtin.light_sample_count} "
+          f"light samples: {wall:.3f} s wall, {out.rays_traced} rays, "
+          f"{out.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; mean "
+          f"{float(out.beauty.mean()):.6g}; coat kernel launches "
+          f"{coat_builtin}", flush=True)
+    frames[SCENE] = ("RGB", out.beauty, builtin)
+    return dict(bvh8t=launches["bvh8t"],
+                coat={BENCH_ROW: coat, SCENE: coat_builtin})
 
 
 def parity(g, ng, c, nc) -> tuple:
@@ -2940,6 +3103,7 @@ def main() -> int:
     results = {}
     phases = (
         ("kernel vs plain", lambda: phase_kernel(ds, settings, log)),
+        ("coat kernel", lambda: phase_coat(scene, card, log)),
         ("full frame", lambda: phase_full_frame(scene, settings, card,
                                                 batches, frames)),
         ("slice parity", lambda: phase_parity(scene, settings)),
@@ -2964,12 +3128,17 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     kernels = kernel_entries(results["kernel vs plain"],
-                             results["full frame"], results["kernel switch"],
+                             results["full frame"]["bvh8t"],
+                             results["kernel switch"],
                              results["device times"],
                              results["builtin scenes"],
                              results["cli and scene files"],
                              results["multi-gpu"])
-    kernels += results["probes"]
+    coat = results["full frame"]["coat"]
+    for kind, entry in zip(("eval", "sample"), results["coat kernel"]):
+        entry["launches"] = coat[BENCH_ROW][kind]
+        entry["scene_launches"] = {SCENE: coat[SCENE][kind]}
+    kernels += results["coat kernel"] + results["probes"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

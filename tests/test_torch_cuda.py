@@ -1,5 +1,5 @@
-"""The CUDA walks and probes on the card, against their plain PyTorch
-versions.
+"""The CUDA walks, the coat kernel and the probes on the card, against
+their plain PyTorch versions.
 
 Marked `cuda`: the kernels have no CPU mode, so these tests skip without a
 card. This file imports no jax and nothing of the JAX package (the machine
@@ -16,7 +16,11 @@ import torch
 from tpu_raytracing_torch.accel import build_bvh
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.device import scene_buffers as SB
+from tpu_raytracing_torch.integrator.accumulate import render_accumulated
 from tpu_raytracing_torch.integrator.render import render
+from tpu_raytracing_torch.ops import bsdf as TB
+from tpu_raytracing_torch.ops import bsdf_dispatch as D
+from tpu_raytracing_torch.ops import layered as L
 from tpu_raytracing_torch.ops import traverse_kernels as TK
 from tpu_raytracing_torch.ops.traverse_bvh8t import (
     intersect_tris_bvh8t, intersect_tris_plain,
@@ -31,9 +35,9 @@ from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
 from chip_smoke import (
-    EXACT, PERSISTENT, at_t_limits, axis_limits, axis_rays, bunnies_glb,
-    compare_trees, edge_rays, emissive_box, repeated_triangles,
-    textured_cubes,
+    COAT_SETTINGS, EXACT, PERSISTENT, at_t_limits, axis_limits, axis_rays,
+    bunnies_glb, coat_calls, compare_trees, edge_rays, emissive_box,
+    repeated_triangles, textured_cubes,
 )
 
 pytestmark = pytest.mark.cuda
@@ -701,7 +705,8 @@ PROBE_ITERS = 256
 @pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the probes are CUDA kernels")
+        pytest.skip("needs a CUDA device: the probes and the coat's walk "
+                    "are CUDA kernels")
 
 
 @pytest.mark.parametrize("small_ids", [False, True], ids=["script", "small_ids"])
@@ -861,3 +866,158 @@ def test_slab_walk_reject_what_the_kernels_do_not_take(card):
         P1.walk_cost(*ins1[:2], ins1[2].float(), *ins1[3:], "slab", 8)
     with pytest.raises(ValueError, match="level"):
         P1.walk_cost(*ins1, "inner99", 8)
+
+
+# ---------------------------------------------- the coat's layered walk
+
+def _unit(v):
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _coat_lanes(n, seed):
+    """Seeded per-lane coats (numpy): smooth and rough (also anisotropic)
+    tops, eta 1 to 2 and exactly 1, with and without a medium (some white,
+    as the bunny's), thin and thick layers, dark bases that Russian
+    roulette ends; wo of both signs, wi.z <= 0 on a tenth (unreachable
+    after the flip), and grazing and axis directions on others."""
+    g = np.random.default_rng(seed)
+    ax = np.where(g.random(n) < 0.3, 1e-3, 0.05 + 0.6 * g.random(n))
+    ay = np.where((g.random(n) < 0.7) | (ax == 1e-3), ax,
+                  0.05 + 0.6 * g.random(n))
+    eta = np.where(g.random(n) < 0.05, 1.0, 1.0 + g.random(n))
+    medium = np.where((g.random(n) < 0.3)[:, None], 0.0, g.random((n, 3)))
+    medium[g.random(n) < 0.2] = 1.0
+    albedo = g.random((n, 3)) * np.where(g.random(n) < 0.3, 0.05, 1.0)[
+        :, None]
+    thickness = np.where(g.random(n) < 0.1, 1e-4, 0.01 + g.random(n))
+    wo, wi = _unit(g.normal(size=(n, 3))), _unit(g.normal(size=(n, 3)))
+    wi[:, 2] = np.abs(wi[:, 2]) * np.sign(wo[:, 2]) * np.where(
+        g.random(n) < 0.1, -1, 1)
+    special = np.array([[0, 0, 1], [0, 0, -1], [1, 0, 0], [0, 1, 0],
+                        [0.6, 0.8, 0], [0.6, 0, 0.8], [1, 0, 1e-7],
+                        [0, -1, -1e-7]], np.float32)
+    for d in (wo, wi):
+        pick = g.random(n) < 0.05
+        d[pick] = _unit(special[g.integers(0, len(special), pick.sum())])
+    params = TB.BsdfParams(
+        kind=np.full(n, 5, np.int32), albedo=albedo,
+        eta=np.repeat(eta[:, None], 3, 1), kappa=np.zeros((n, 3)),
+        alpha_x=ax, alpha_y=ay,
+        top_kind=np.where((ax == 1e-3) & (ay == 1e-3), 1, 3).astype(np.int32),
+        thickness=thickness, coat_albedo=medium)
+    params = TB.BsdfParams(*(
+        torch.from_numpy(np.asarray(
+            x, np.int32 if x.dtype == np.int32 else np.float32)).cuda()
+        for x in params))
+    draw_base = torch.from_numpy(
+        g.integers(0, 1 << 32, n, dtype=np.int64)).cuda()
+    return (params, torch.from_numpy(wo).cuda(), torch.from_numpy(wi).cuda(),
+            draw_base)
+
+
+def _same_bits(got, want) -> bool:
+    """Every output bit for bit (floats as int32 views, so NaNs compare)."""
+    got = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+    want = (want,) if isinstance(want, torch.Tensor) else tuple(want)
+    torch.cuda.synchronize()
+    return all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if a.dtype == torch.float32 else torch.equal(a, b)
+        for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_coat_eval_kernel_vs_plain(card, seed):
+    params, wo, wi, _ = _coat_lanes(16385, seed)
+    steps = torch.zeros(wo.shape[0], dtype=torch.int32, device="cuda")
+    got = L._eval_kernel(params, wo, wi, steps=steps)
+    assert _same_bits(got, L.layered_eval_plain(params, wo, wi))
+    # unreachable lanes walk no step; the others end their walks at every
+    # depth, all eight samples' walks at most 64 steps
+    assert (steps == 0).any() and int(steps.max()) <= 64
+    assert len(torch.unique(steps)) > 32
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_coat_sample_kernel_vs_plain(card, seed):
+    params, wo, _, draw_base = _coat_lanes(16385, seed)
+    steps = torch.zeros(wo.shape[0], dtype=torch.int32, device="cuda")
+    got = L._sample_kernel(params, wo, draw_base, steps=steps)
+    want = L.layered_sample_plain(params, wo, draw_base)
+    assert _same_bits(got, want)
+    # coat reflections (no step), escapes after 2 to 8 steps (the first
+    # step down reaches the base, which reflects), and null samples
+    assert set(torch.unique(steps).tolist()) >= {0, *range(2, 9)}
+    assert want.valid.any() and not want.valid.all()
+
+
+def test_coat_bunny_calls_bit_for_bit(card):
+    """Every coat call of one 1-spp 500x500 bunny pass (its lane counts and
+    its inputs as the dispatch gathers them)."""
+    scene = get_test_scene("coated_diffuse_bunny").scene_func()
+    calls = coat_calls(scene, RaytracerSettings(**COAT_SETTINGS))
+    assert {c[0] for c in calls} == {"eval", "sample"}
+    for kind, params, wo, third in calls:
+        kernel, plain = ((L.layered_eval, L.layered_eval_plain)
+                         if kind == "eval" else
+                         (L.layered_sample, L.layered_sample_plain))
+        assert _same_bits(kernel(params, wo, third),
+                          plain(params, wo, third)), (kind, wo.shape[0])
+
+
+def test_coat_repeats_bit_for_bit(card):
+    params, wo, wi, draw_base = _coat_lanes(4097, 2)
+    first = (L.layered_eval(params, wo, wi),
+             *L.layered_sample(params, wo, draw_base))
+    for _ in range(2):
+        again = (L.layered_eval(params, wo, wi),
+                 *L.layered_sample(params, wo, draw_base))
+        assert _same_bits(again, first)
+
+
+def test_coat_empty_call_launches_nothing(card):
+    params, wo, wi, draw_base = _coat_lanes(8, 3)
+    none = TB.BsdfParams(*(x[:0] for x in params))
+    launched = (L.layered_eval.launches, L.layered_sample.launches)
+    f = L.layered_eval(none, wo[:0], wi[:0])
+    s = L.layered_sample(none, wo[:0], draw_base[:0])
+    assert f.shape == (0, 3) and s.wi.shape == (0, 3) and s.valid.shape == (0,)
+    assert (L.layered_eval.launches, L.layered_sample.launches) == launched
+    L.layered_eval(params, wo, wi)
+    assert L.layered_eval.launches == launched[0] + 1
+
+
+def test_coat_rejects_what_the_kernel_does_not_take(card):
+    params, wo, wi, draw_base = _coat_lanes(64, 4)
+    with pytest.raises(ValueError, match="expected"):
+        L.layered_eval(params, wo, wi.double())
+    with pytest.raises(ValueError, match="expected"):
+        L.layered_eval(params, wo, wi[:, :2])
+    with pytest.raises(ValueError, match="expected"):
+        L.layered_eval(params, wo, wi.cpu())
+    with pytest.raises(ValueError, match="expected"):
+        L.layered_eval(params._replace(top_kind=params.top_kind.long()), wo,
+                       wi)
+    with pytest.raises(ValueError, match="expected"):
+        L.layered_sample(params, wo, draw_base.int())
+    with pytest.raises(ValueError, match="expected"):
+        L.layered_sample(params._replace(thickness=params.thickness[:32]),
+                         wo, draw_base)
+
+
+def test_coat_frame_with_plain_twin_bit_for_bit(card, monkeypatch):
+    """A small bunny frame through render_accumulated(spp_chunk=1): the
+    same image with the kernel and with the plain twins routed in."""
+    scene = get_test_scene("coated_diffuse_bunny").scene_func()
+    scene.camera = scene.camera.with_resolution(48, 40)
+    s = RaytracerSettings(samples_per_pixel=2, light_sample_count=4,
+                          max_ray_depth=8)
+    launched = L.layered_eval.launches
+    a = render_accumulated(scene, s, spp_chunk=1)
+    assert L.layered_eval.launches > launched
+    monkeypatch.setattr(D, "layered_eval", L.layered_eval_plain)
+    monkeypatch.setattr(D, "layered_sample", L.layered_sample_plain)
+    b = render_accumulated(scene, s, spp_chunk=1)
+    assert a.beauty.mean() > 0 and a.rays_traced == b.rays_traced
+    np.testing.assert_array_equal(a.beauty.view(np.int32),
+                                  b.beauty.view(np.int32))

@@ -130,6 +130,12 @@ SIGNATURES = {
     "tpu_rt_probe_walk_cost": [_P] * 9 + [_I] * 2 + [_P],
     # nodes, tris, meta, o, d, t_min, out, visits, stats | level, iters |
     # stream
+    "tpu_rt_layered_eval": [_P] * 11 + [_I, _P],
+    # albedo, eta, alpha_x, alpha_y, top_kind, thickness, coat_albedo, wo,
+    # wi, f_out, steps | n | stream
+    "tpu_rt_layered_sample": [_P] * 15 + [_I, _P],
+    # the eval's seven coat fields, wo, draw_base, wi_out, f_out, pdf_out,
+    # comp_out, valid_out, steps | n | stream
 }
 
 

@@ -1,10 +1,16 @@
 """Stochastic layered BSDF (CoatedDiffuse): a dielectric coat over a
 diffuse base with an optional homogeneous medium between (HG phase, g = 0).
 
-Counterpart of tpu_raytracing/ops/layered.py. The JAX package's fori_loops
-over samples and walk depth become Python loops over masked tensors, with
-the same per-lane math and the same hashed sub-streams: evaluation hashes
-the (wo, wi) bit patterns, sampling hashes the caller's per-lane seed.
+Counterpart of tpu_raytracing/ops/layered.py, with the same per-lane math
+and the same hashed sub-streams: evaluation hashes the (wo, wi) bit
+patterns, sampling hashes the caller's per-lane seed.
+
+- `layered_eval` and `layered_sample` launch csrc/layered_walk.cu on CUDA
+  tensors, one thread a lane with the whole walk in registers, bit for bit
+  with the plain twins; there is no fallback.
+- On CPU tensors they run the plain twins, `layered_eval_plain` and
+  `layered_sample_plain`: the JAX package's fori_loops over samples and
+  walk depth as Python loops over masked tensors.
 """
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ import math
 
 import torch
 
-from .. import tracing
+from .. import native_cuda, tracing
 from ..device.scene_buffers import MAT_SMOOTH_DIELECTRIC
 from . import bsdf as B
 from .linalg import dot, make_orthonormal_basis
@@ -126,7 +132,7 @@ def _eval_base_stream(wo, wi):
                     *(f32_bits(wi[..., i]) for i in range(3)))
 
 
-def layered_eval(params: B.BsdfParams, wo, wi):
+def layered_eval_plain(params: B.BsdfParams, wo, wi):
     """Stochastic estimate of the layered BSDF value."""
     flip = (wo[..., 2] < 0.0)[..., None]
     wo = torch.where(flip, -wo, wo)
@@ -293,7 +299,8 @@ def layered_eval(params: B.BsdfParams, wo, wi):
 
 # ----------------------------------------------------------------- sampling
 
-def layered_sample(params: B.BsdfParams, wo, draw_base) -> B.BsdfSample:
+def layered_sample_plain(params: B.BsdfParams, wo,
+                         draw_base) -> B.BsdfSample:
     """Sample the layered BSDF with a random walk.
 
     draw_base: per-lane uint32 seed (int64), derived by the caller from
@@ -425,3 +432,92 @@ def layered_sample(params: B.BsdfParams, wo, draw_base) -> B.BsdfSample:
         component=torch.where(enter_reflect, enter.component, out_comp),
         valid=torch.where(enter_reflect, enter.valid, done),
     )
+
+
+# ------------------------------------------------------- the card's kernel
+
+def _card_args(name: str, params: B.BsdfParams, wo, extra) -> list:
+    """The coat's fields the kernel reads, wo and `extra` (a (field,
+    tensor, dtype, shape after n) entry), each checked and contiguous."""
+    n, f32 = wo.shape[0], torch.float32
+    fields = [("albedo", params.albedo, f32, (3,)),
+              ("eta", params.eta, f32, (3,)),
+              ("alpha_x", params.alpha_x, f32, ()),
+              ("alpha_y", params.alpha_y, f32, ()),
+              ("top_kind", params.top_kind, torch.int32, ()),
+              ("thickness", params.thickness, f32, ()),
+              ("coat_albedo", params.coat_albedo, f32, (3,)),
+              ("wo", wo, f32, (3,)), extra]
+    return [native_cuda.check_tensor(f"{name}: {field}", x, (n, *width),
+                                     dtype, wo.device)
+            for field, x, dtype, width in fields]
+
+
+def _launch(entry: str, args: list, outs, steps) -> None:
+    n = args[0].shape[0]
+    if steps is not None:
+        steps = native_cuda.check_tensor("steps", steps, (n,), torch.int32,
+                                         args[0].device)
+    native_cuda.launch(entry, args[0].device,
+                       *(x.data_ptr() for x in (*args, *outs)),
+                       None if steps is None else steps.data_ptr(), n)
+    tracing.count("coat.kernel_lanes", n)
+
+
+def layered_eval(params: B.BsdfParams, wo, wi):
+    """Stochastic estimate of the layered BSDF value, (n, 3).
+
+    CUDA tensors launch the kernel (adding one to `layered_eval.launches`
+    and n to the traced counter `coat.kernel_lanes`); CPU tensors run
+    `layered_eval_plain`."""
+    if not native_cuda.on_card("layered_eval", wo):
+        return layered_eval_plain(params, wo, wi)
+    return _eval_kernel(params, wo, wi)
+
+
+def layered_sample(params: B.BsdfParams, wo, draw_base) -> B.BsdfSample:
+    """Sample the layered BSDF with a random walk.
+
+    draw_base: per-lane uint32 seed (int64), derived by the caller from
+    the pixel sample stream. CUDA tensors launch the kernel (adding one to
+    `layered_sample.launches` and n to `coat.kernel_lanes`); CPU tensors
+    run `layered_sample_plain`."""
+    if not native_cuda.on_card("layered_sample", wo):
+        return layered_sample_plain(params, wo, draw_base)
+    return _sample_kernel(params, wo, draw_base)
+
+
+def _eval_kernel(params: B.BsdfParams, wo, wi, steps=None):
+    """`layered_eval` on CUDA tensors. `steps` (None, or an (n,) int32
+    tensor) receives the depth steps each lane's walks began: chip_smoke.py
+    bounds the kernel by them, and the card tests read them."""
+    args = _card_args("layered_eval", params, wo,
+                      ("wi", wi, torch.float32, (3,)))
+    f = torch.empty_like(args[-1])
+    if wo.shape[0]:
+        _launch("tpu_rt_layered_eval", args, (f,), steps)
+        layered_eval.launches += 1
+    return f
+
+
+def _sample_kernel(params: B.BsdfParams, wo, draw_base,
+                   steps=None) -> B.BsdfSample:
+    """`layered_sample` on CUDA tensors; `steps` as in `_eval_kernel`."""
+    args = _card_args("layered_sample", params, wo,
+                      ("draw_base", draw_base, torch.int64, ()))
+    n, dev = wo.shape[0], wo.device
+    out = B.BsdfSample(
+        wi=torch.empty((n, 3), dtype=torch.float32, device=dev),
+        f=torch.empty((n, 3), dtype=torch.float32, device=dev),
+        pdf=torch.empty(n, dtype=torch.float32, device=dev),
+        component=torch.empty(n, dtype=torch.int32, device=dev),
+        valid=torch.empty(n, dtype=torch.bool, device=dev),
+    )
+    if n:
+        _launch("tpu_rt_layered_sample", args, out, steps)
+        layered_sample.launches += 1
+    return out
+
+
+layered_eval.launches = 0
+layered_sample.launches = 0

@@ -24,6 +24,7 @@ Counters are kept here until `snapshot()`; a device value is kept as its
                   `nonzero`, a copy between host and card) at each site
     lanes.alive   lanes alive at the top of each bounce
     lanes.run     lanes each bounce ran over
+    coat.kernel_lanes   lanes the coat's kernel took (ops/layered.py)
 
     from tpu_raytracing_torch import tracing
     tracing.reset(); tracing.enable()
