@@ -285,51 +285,54 @@ def render_beauty_chunk(ds: DeviceScene, cfg: SamplerConfig,
 
 
 def render_aov_chunk(ds: DeviceScene, cfg: SamplerConfig, st: StaticSettings,
-                     px, py, albedo: bool = True, mip_level: bool = True):
+                     px, py, albedo: bool = True, mip_level: bool = True,
+                     active=None):
     """First-hit AOVs of one pixel chunk from unjittered camera rays:
     (normals (B, 3), albedo (B, 3), uv (B, 2), mip level (B,)), zero where
     nothing is hit. Albedo is the albedo texture of diffuse and coated
     materials and white for the others (materials.rs get_albedo); the mip
     level is that of a diffuse material's albedo texture where it is a
     trilinear image (materials.rs get_mip_level). An AOV whose flag is
-    false is zero, and no texture work runs for it."""
-    stream = make_stream(px, py, 0)
-    ray_o, ray_d, diff, stream = generate_rays(
-        ds, px, py, cfg, stream, st.samples_per_pixel, jitter=False)
-    B_ = px.shape[0]
-    dev = ray_o.device
-    t, prim = intersect_scene(
-        ds, ray_o, ray_d,
-        torch.full((B_,), ds.meta.near_clip, dtype=torch.float32, device=dev),
-        torch.full((B_,), ds.meta.far_clip, dtype=torch.float32, device=dev))
-    hit = hit_details(ds, ray_o, ray_d, t, prim)
-    h1 = hit.hit[:, None]
-    normals = torch.where(h1, hit.normal, 0.0)
-    uv = torch.where(h1, hit.uv, 0.0)
-    alb = torch.zeros_like(normals)
-    mip = torch.zeros(B_, dtype=torch.float32, device=dev)
-    if not (albedo or mip_level):
+    false is zero, and no texture work runs for it. Lanes where `active`
+    (bool (B,)) is false are walked dead: every AOV is zero there."""
+    with tracing.span("rt.aov.chunk", host_ns=True):
+        stream = make_stream(px, py, 0)
+        ray_o, ray_d, diff, stream = generate_rays(
+            ds, px, py, cfg, stream, st.samples_per_pixel, jitter=False)
+        B_ = px.shape[0]
+        dev = ray_o.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        t, prim = intersect_scene(
+            ds, ray_o, ray_d, torch.full((B_,), ds.meta.near_clip, **f32),
+            torch.full((B_,), ds.meta.far_clip, **f32), active=active)
+        hit = hit_details(ds, ray_o, ray_d, t, prim)
+        h1 = hit.hit[:, None]
+        normals = torch.where(h1, hit.normal, 0.0)
+        uv = torch.where(h1, hit.uv, 0.0)
+        alb = torch.zeros_like(normals)
+        mip = torch.zeros(B_, dtype=torch.float32, device=dev)
+        if not (albedo or mip_level):
+            return normals, alb, uv, mip
+        ctx = eval_ctx_from_differentials(hit, ray_o, ray_d, diff)
+        ctx = EvalCtx(uv=hit.uv, **{
+            k: torch.where(hit.hit, getattr(ctx, k), 0.0)
+            for k in ("dudx", "dudy", "dvdx", "dvdy")})
+        mat = torch.clamp(hit.material, min=0).long()
+        kind = ds.mat_kind[mat]
+        albedo_tex = ds.mat_tex[mat, 0]
+        if albedo:
+            sk = ds.meta.slot_kinds
+            sampled = eval_texture(ds, albedo_tex, ctx,
+                                   kinds=sk[0] if sk else None)[:, :3]
+            has_albedo = (kind == MAT_DIFFUSE) | (kind == MAT_COATED_DIFFUSE)
+            alb = torch.where(
+                h1, torch.where(has_albedo[:, None], sampled, 1.0), 0.0)
+        if mip_level:
+            diffuse = kind == MAT_DIFFUSE
+            level, valid = texture_mip_level(
+                ds, torch.where(diffuse, albedo_tex, -1), ctx)
+            mip = torch.where(hit.hit & valid & diffuse, level, 0.0)
         return normals, alb, uv, mip
-    ctx = eval_ctx_from_differentials(hit, ray_o, ray_d, diff)
-    ctx = EvalCtx(uv=hit.uv, **{
-        k: torch.where(hit.hit, getattr(ctx, k), 0.0)
-        for k in ("dudx", "dudy", "dvdx", "dvdy")})
-    mat = torch.clamp(hit.material, min=0).long()
-    kind = ds.mat_kind[mat]
-    albedo_tex = ds.mat_tex[mat, 0]
-    if albedo:
-        sk = ds.meta.slot_kinds
-        sampled = eval_texture(ds, albedo_tex, ctx,
-                               kinds=sk[0] if sk else None)[:, :3]
-        has_albedo = (kind == MAT_DIFFUSE) | (kind == MAT_COATED_DIFFUSE)
-        alb = torch.where(h1, torch.where(has_albedo[:, None], sampled, 1.0),
-                          0.0)
-    if mip_level:
-        diffuse = kind == MAT_DIFFUSE
-        level, valid = texture_mip_level(
-            ds, torch.where(diffuse, albedo_tex, -1), ctx)
-        mip = torch.where(hit.hit & valid & diffuse, level, 0.0)
-    return normals, alb, uv, mip
 
 
 def _interleave_bits(v: np.ndarray) -> np.ndarray:
@@ -413,12 +416,20 @@ def render(scene_or_device, settings: RaytracerSettings, device="cuda",
         t0 = time.perf_counter()
         want_albedo = bool(settings.outputs & AovFlags.ALBEDO)
         want_mip = bool(settings.outputs & AovFlags.MIP_LEVEL)
-        parts = [[r[:size] for r in res] for size, res in _run_chunked(
-            lambda a, b, act: render_aov_chunk(ds, cfg, st, a, b, want_albedo,
-                                               want_mip),
-            px, py, device, chunk)]
-        normals, albedo, uv, mip = (
-            torch.cat(p).cpu().numpy()[unmorton] for p in zip(*parts))
+        with tracing.span("rt.aov", host_ns=True):
+            sized = list(_run_chunked(
+                lambda a, b, act: render_aov_chunk(
+                    ds, cfg, st, a, b, want_albedo, want_mip, active=act),
+                px, py, device, chunk))
+            # a chunk hands the walk its `size` pixels active, its padding
+            # dead: the rays are counted on the host
+            out.aov_rays_traced = tracing.count(
+                "aov.lanes", sum(size for size, _ in sized))
+            with tracing.span("rt.aov.to_host", host_ns=True):
+                tracing.sync("render.aov_to_host", 4)
+                normals, albedo, uv, mip = (
+                    torch.cat([res[k][:size] for size, res in sized])
+                    .cpu().numpy()[unmorton] for k in range(4))
         log.info("aov pass took %.3fs", time.perf_counter() - t0)
         if settings.outputs & AovFlags.NORMALS:
             out.normals = normals.reshape(height, width, 3)

@@ -51,6 +51,7 @@ class RenderOutput:
     uv: Optional[np.ndarray] = None         # (H, W, 2) f32
     mip_level: Optional[np.ndarray] = None  # (H, W) f32
     rays_traced: int = 0                    # beauty-pass ray count (perf)
+    aov_rays_traced: int = 0                # camera rays of the AOV pass
 
 
 @dataclass

@@ -16,6 +16,9 @@ starts with "rt.":
     rt.coat.eval, rt.coat.sample              the coat's layered walk
     rt.accumulate a pass's host work after its samples
     rt.callback   the caller's on_chunk
+    rt.aov        the first-hit AOV pass of `render`
+    rt.aov.chunk  one pixel chunk of it (render_aov_chunk)
+    rt.aov.to_host  its copies to the host and the Morton reorder
 
 Counters are kept here until `snapshot()`; a device value is kept as its
 0-d tensor and summed only there, so counting adds no sync to a pass:
@@ -25,6 +28,9 @@ Counters are kept here until `snapshot()`; a device value is kept as its
     lanes.alive   lanes alive at the top of each bounce
     lanes.run     lanes each bounce ran over
     coat.kernel_lanes   lanes the coat's kernel took (ops/layered.py)
+    aov.lanes     lanes the AOV pass handed the walk active
+    host_ns.<span>  host nanoseconds inside a span opened with
+                  `host_ns=True` (the rt.aov spans)
 
     from tpu_raytracing_torch import tracing
     tracing.reset(); tracing.enable()
@@ -39,6 +45,7 @@ With tracing off, `span` returns one shared no-op context manager and
 from __future__ import annotations
 
 import contextlib
+import time
 
 import torch
 
@@ -84,28 +91,36 @@ def snapshot() -> dict:
 
 
 class _Span:
-    def __init__(self, name: str, args):
+    def __init__(self, name: str, args, host_ns: bool):
         self.name = name
         self.fn = torch.profiler.record_function(
             name, None if args is None else
             ", ".join(f"{k}={v}" for k, v in args.items()))
+        self.host_ns = host_ns
+        self.t0 = 0
 
     def __enter__(self):
         self.fn.__enter__()
         _state.open.append(self.name)
+        if self.host_ns:
+            self.t0 = time.perf_counter_ns()
 
     def __exit__(self, *exc):
+        if self.host_ns:
+            _add("host_ns." + self.name, time.perf_counter_ns() - self.t0)
         _state.open.pop()
         return self.fn.__exit__(*exc)
 
 
-def span(name: str, args: dict | None = None):
+def span(name: str, args: dict | None = None, host_ns: bool = False):
     """A context manager around one unit of a layer's work, named
     "rt.<layer>[.<part>]"; `args` (a dict) is kept beside it in the
-    profiler's event."""
+    profiler's event. With `host_ns`, the host's nanoseconds inside it
+    add to the counter "host_ns.<name>", which a reader can take without
+    a profiler session."""
     if not _state.on:
         return _OFF
-    return _Span(name, args)
+    return _Span(name, args, host_ns)
 
 
 def sync(site: str, n: int = 1) -> None:
