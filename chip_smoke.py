@@ -36,6 +36,12 @@ Phases (any failure exits nonzero and prints no result):
    lane counts), each kind's calls timed (the kernel by CUDA events, the
    plain twin once) beside a bound from the f32 operations of the depth
    steps the lanes began, with ptxas's registers and spills;
+3c. shade kernel: the BSDF dispatch's kernel for the kinds other than the
+   coat's (csrc/bsdf_kinds.cu) against its plain twins
+   (ops/bsdf_dispatch.py) bit for bit on every dispatch call of one 1-spp
+   500x500 rough_dielectric pass (the benchmark's settings), each kind's
+   kernel launches timed by CUDA events beside the plain twins (once) and
+   a bound from the bytes a lane moves, with ptxas's registers and spills;
 4. full frame: render coated_diffuse_bunny at 500x500, 8 spp, depth 8 and
    one light sample on cuda, through the bvh8t kernel and the coat kernel
    (the launch counts of both reset just before, read just after, each
@@ -235,6 +241,13 @@ COAT_SETTINGS = dict(samples_per_pixel=1, light_sample_count=4,
                      max_ray_depth=8)
 COAT_STEP_OPS = {"eval": 43, "sample": 28}
 COAT_LANE_BYTES = {"eval": 88, "sample": 105}  # read once, written once
+# the shading kernel (csrc/bsdf_kinds.cu) on one 1-spp pass of the
+# rough_dielectric scene at the same settings; its bound is bytes, each
+# lane's inputs read once and its outputs written once: kind, albedo, eta,
+# kappa, the roughnesses and wo (60 B), then wi and f (eval) or the three
+# draws and the sample (wi, f, pdf, component, valid)
+SHADE_SCENE = "rough_dielectric"
+SHADE_LANE_BYTES = {"eval": 60 + 12 + 12, "sample": 60 + 12 + 33}
 MAX_TIE_FRACTION = 1e-4
 # axis rays from snapped box planes often run through a shared vertex or
 # edge, where two walks that order leaves differently may pick different
@@ -980,6 +993,63 @@ def coat_outputs(kind: str, out) -> tuple:
     return (out,) if kind == "eval" else tuple(out)
 
 
+# the BSDF dispatch's edge directions: the poles, grazing (z = 0 and
+# +-1e-7), the axes and two diagonals
+EDGE_DIRS = np.array(
+    [[0, 0, 1], [0, 0, -1], [1, 0, 0], [0, 1, 0], [0.6, 0.8, 0],
+     [0.6, 0, 0.8], [1, 0, 1e-7], [0, -1, -1e-7], [0.8, 0, -0.6]],
+    np.float32)
+
+
+def bsdf_lanes(n: int, seed: int, kinds=(0, 1, 2, 3, 4, 5), edge=0.05):
+    """Seeded lanes for the BSDF dispatch, on the CPU: (params, wo, wi,
+    stream). Kinds drawn from `kinds`; dielectric indices 1 to 2.5 and
+    exactly 1; conductors' eta 0.1 to 3 and kappa 0 to 6 per channel
+    (zero kappa on some); roughness 1e-3 to 0.8, anisotropic on half the
+    rough lanes; coats as tests/test_torch_cuda.py's. wo and wi lie in
+    either hemisphere, an `edge` share of each on EDGE_DIRS; wo from below
+    a dielectric at grazing angles reflects totally. The stream starts at
+    seeded dimensions."""
+    from tpu_raytracing_torch.ops import bsdf as B
+    from tpu_raytracing_torch.ops.rng import make_stream
+
+    g = np.random.default_rng(seed)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    kind = g.choice(np.asarray(kinds, np.int32), n)
+    conductor = (kind == 2) | (kind == 4)
+    eta_d = np.where(g.random(n) < 0.05, 1.0, 1.0 + 1.5 * g.random(n))
+    eta = np.where(conductor[:, None], 0.1 + 2.9 * g.random((n, 3)),
+                   np.repeat(eta_d[:, None], 3, 1))
+    kappa = np.where((g.random(n) < 0.1)[:, None], 0.0,
+                     6.0 * g.random((n, 3)))
+    ax = np.where(g.random(n) < 0.1, 1e-3, 1e-3 + 0.8 * g.random(n))
+    ay = np.where(g.random(n) < 0.5, ax, 1e-3 + 0.8 * g.random(n))
+    wo = unit(g.normal(size=(n, 3)))
+    wi = unit(g.normal(size=(n, 3)))
+    for d in (wo, wi):
+        pick = g.random(n) < edge
+        d[pick] = unit(EDGE_DIRS[g.integers(0, len(EDGE_DIRS), pick.sum())])
+    medium = np.where((g.random(n) < 0.3)[:, None], 0.0, g.random((n, 3)))
+    params = B.BsdfParams(
+        kind=kind, albedo=g.random((n, 3)), eta=eta, kappa=kappa,
+        alpha_x=ax, alpha_y=ay,
+        top_kind=np.where(np.maximum(ax, ay) <= 1e-3, 1, 3).astype(np.int32),
+        thickness=0.01 + g.random(n), coat_albedo=medium)
+    params = B.BsdfParams(*(
+        torch.from_numpy(np.asarray(
+            x, np.int32 if x.dtype == np.int32 else np.float32))
+        for x in params))
+    px = torch.from_numpy(g.integers(0, 500, n))
+    py = torch.from_numpy(g.integers(0, 500, n))
+    stream = make_stream(px, py, int(g.integers(0, 32)))
+    stream = stream._replace(dim=torch.from_numpy(g.integers(0, 40, n)))
+    return (params, torch.from_numpy(wo.astype(np.float32)),
+            torch.from_numpy(wi.astype(np.float32)), stream)
+
+
 def phase_coat(scene, card: str, ptxas_log: str) -> list:
     """The coat kernel against its plain twins on every coat call of one
     1-spp bunny pass (COAT_SETTINGS), bit for bit; each kind's calls timed
@@ -1053,24 +1123,150 @@ def phase_coat(scene, card: str, ptxas_log: str) -> list:
     return entries
 
 
+def shade_calls(scene, settings) -> list:
+    """Every BSDF dispatch call of one render of `scene` on cuda, its
+    inputs cloned as the integrator hands them over: ("eval", params, wo,
+    wi, kinds, active) or ("sample", params, wo, allowed, cfg, stream,
+    kinds, active)."""
+    from unittest import mock
+
+    from tpu_raytracing_torch.integrator import render as R
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(clone(v) for v in x))
+        return x
+
+    calls = []
+
+    def recorder(kind, fn):
+        def run(*args, **kwargs):
+            calls.append((kind, *(clone(a) for a in args),
+                          clone(kwargs.get("active"))))
+            return fn(*args, **kwargs)
+        return run
+
+    with mock.patch.object(R, "bsdf_eval", recorder("eval", R.bsdf_eval)), \
+            mock.patch.object(R, "bsdf_sample",
+                              recorder("sample", R.bsdf_sample)):
+        R.render(scene, settings)
+    return calls
+
+
+def phase_shade(card: str, ptxas_log: str) -> list:
+    """The shading kernel against the plain twins on every BSDF dispatch
+    call of one 1-spp rough_dielectric pass (COAT_SETTINGS), bit for bit;
+    each kind's kernel launches timed by CUDA events beside the plain
+    twins (once) and the byte bound; ptxas's registers and spills. Returns
+    the two {"kernels": [...]} entries, with the pass's launches read from
+    the wrappers' counters; main() fills in those of phase 4's frames."""
+    from tpu_raytracing_torch.ops import bsdf_dispatch as D
+    from tpu_raytracing_torch.ops.rng import sample_uniform, sample_uniform2
+    from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+    from tpu_raytracing_torch.settings import AovFlags, RaytracerSettings
+
+    reports = ptxas_report(ptxas_log, "bsdf_")
+    for r in reports:
+        r["instance"] = re.search(r"bsdf_(eval|sample)_kernel",
+                                  r["entry"]).group()
+        print(f"# ptxas {r['instance']}: {r.get('registers')} registers, "
+              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spill "
+              f"stores / loads, {r.get('stack_frame')} bytes stack frame",
+              flush=True)
+    scene = get_test_scene(SHADE_SCENE).scene_func()
+    settings = RaytracerSettings(outputs=AovFlags.BEAUTY, **COAT_SETTINGS)
+    calls, pass_launches = kernel_launches(
+        lambda: shade_calls(scene, settings), "shade")
+    ok, entries = True, []
+    for kind in ("eval", "sample"):
+        mine = [c[1:] for c in calls if c[0] == kind]
+        lanes = [c[1].shape[0] for c in mine]
+        k_ms, p_ms, kind_ok = [], [], True
+        for args in mine:
+            if kind == "eval":
+                params, wo, wi, kinds, active = args
+                got = (D.bsdf_eval(params, wo, wi, kinds, active),)
+                want, ms = plain_run(lambda: (D.bsdf_eval_plain(*args),))
+                run = (lambda: D._eval_kernel(
+                    params, wo, wi, D._rough_kinds(kinds)))
+            else:
+                params, wo, allowed, cfg, stream, kinds, active = args
+                s, st = D.bsdf_sample(*args)
+                got = (*s, *st)
+                (w, wst), ms = plain_run(lambda: D.bsdf_sample_plain(*args))
+                want = (*w, *wst)
+                u2, s2 = sample_uniform2(cfg, stream)
+                u1, _ = sample_uniform(cfg, s2)
+                run = (lambda: D._sample_kernel(
+                    params, wo, u2, u1, allowed, D._rough_kinds(kinds)))
+            p_ms.append(ms)
+            for g, w in zip(got, want):
+                same, _, report = bits_compare(
+                    *(x.to(torch.int32) if x.dtype in (torch.bool, torch.int64)
+                      else x for x in (g, w)))
+                if not same:
+                    print(f"# shade {kind} on {wo.shape[0]} lanes: "
+                          f"{report}: FAIL", flush=True)
+                kind_ok = kind_ok and same
+            k_ms.append(time_ms(run, 20))
+        n_lanes = sum(lanes)
+        bound_ms, bound_by = bound_entry(
+            0, n_lanes * SHADE_LANE_BYTES[kind], FP32_OPS_PER_S)
+        kms, pms = sum(k_ms), sum(p_ms)
+        print(f"# shade {kind}: {len(mine)} calls of {min(lanes)}-"
+              f"{max(lanes)} lanes ({n_lanes} in all), "
+              f"{pass_launches['shade'][kind]} kernel launches, bit for bit "
+              f"with the plain twin: {'ok' if kind_ok else 'FAIL'}; kernel "
+              f"{kms / len(mine):.4f} ms a call, plain twin "
+              f"{pms / len(mine):.2f} ms a call ({pms / kms:.0f}x); bound "
+              f"{bound_ms / len(mine):.5f} ms a call (by {bound_by}), "
+              f"{bound_ms / kms * 100:.2f}% of the kernel time; on {card}",
+              flush=True)
+        entries.append(dict(
+            name=f"bsdf_{kind}_kernel", route="cuda",
+            source=CSRC + "bsdf_kinds.cu",
+            replaces="none: XLA code (tpu_raytracing/ops/bsdf_dispatch.py)",
+            pass_calls=len(mine),
+            scene_launches={SHADE_SCENE: pass_launches["shade"][kind]},
+            lanes=lanes, ms=kms / len(mine), plain_ms=pms / len(mine),
+            bound_ms=bound_ms / len(mine), bound_by=bound_by,
+            ptxas=[r for r in reports if kind in r["instance"]],
+            library_ms=None,
+            library="none: no PyTorch call computes a BSDF"))
+        ok = ok and kind_ok
+    if not ok:
+        raise AssertionError("the shading kernel disagrees with its plain "
+                             "twins")
+    return entries
+
+
 def launch_counts() -> dict:
     from tpu_raytracing_torch.ops.traverse_kernels import WALKS
 
     return {w: dict(fn.launches) for w, fn in WALKS.items()}
 
 
-def coat_launches(render_frame) -> tuple:
-    """Run render_frame() with the coat kernel's launch counts set to 0
-    just before and read just after; returns (its result, {"eval": n,
-    "sample": n}), and raises if either kernel never launched."""
+def kernel_launches(render_frame, *layers) -> tuple:
+    """Run render_frame() with the launch counts of the kernels of `layers`
+    ("coat": ops/layered.py's wrappers, "shade": ops/bsdf_dispatch.py's)
+    set to 0 just before and read just after; returns (its result, {layer:
+    {"eval": n, "sample": n}}), and raises if any of them never launched."""
+    from tpu_raytracing_torch.ops import bsdf_dispatch as D
     from tpu_raytracing_torch.ops import layered as L
 
-    L.layered_eval.launches = L.layered_sample.launches = 0
+    wrappers = {"coat": (L.layered_eval, L.layered_sample),
+                "shade": (D.bsdf_eval, D.bsdf_sample)}
+    for layer in layers:
+        for fn in wrappers[layer]:
+            fn.launches = 0
     out = render_frame()
-    counts = {"eval": L.layered_eval.launches,
-              "sample": L.layered_sample.launches}
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a coat kernel never launched: {counts}")
+    counts = {layer: {"eval": wrappers[layer][0].launches,
+                      "sample": wrappers[layer][1].launches}
+              for layer in layers}
+    if min(n for c in counts.values() for n in c.values()) <= 0:
+        raise AssertionError(f"a kernel never launched: {counts}")
     return out, counts
 
 
@@ -1160,7 +1356,8 @@ def phase_full_frame(scene, settings, card: str, store: list,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with kept_batches("bvh8t", store):
-        out, coat = coat_launches(lambda: render(scene, settings))
+        out, counts = kernel_launches(lambda: render(scene, settings),
+                                      "coat", "shade")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -1171,8 +1368,8 @@ def phase_full_frame(scene, settings, card: str, store: list,
           f"{wall:.3f} s wall (scene compile and the batch copies "
           f"included), {out.rays_traced} "
           f"rays, {out.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; "
-          f"mean {mean:.6g}; launches {launches['bvh8t']}, coat kernel "
-          f"launches {coat}", flush=True)
+          f"mean {mean:.6g}; launches {launches['bvh8t']}, coat and shade "
+          f"kernel launches {counts}", flush=True)
     if not np.isfinite(img).all():
         raise AssertionError("non-finite beauty pixels")
     if not mean > 0.0:
@@ -1190,17 +1387,20 @@ def phase_full_frame(scene, settings, card: str, store: list,
     builtin.outputs |= AovFlags.BEAUTY
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, coat_builtin = coat_launches(lambda: render(scene, builtin))
+    out, builtin_counts = kernel_launches(lambda: render(scene, builtin),
+                                          "coat", "shade")
     wall = time.perf_counter() - t0
     print(f"# full frame at the builtin settings, "
           f"{builtin.samples_per_pixel} spp, {builtin.light_sample_count} "
           f"light samples: {wall:.3f} s wall, {out.rays_traced} rays, "
           f"{out.rays_traced / wall / 1e6:.3f} Mrays/s on {card}; mean "
-          f"{float(out.beauty.mean()):.6g}; coat kernel launches "
-          f"{coat_builtin}", flush=True)
+          f"{float(out.beauty.mean()):.6g}; coat and shade kernel launches "
+          f"{builtin_counts}", flush=True)
     frames[SCENE] = ("RGB", out.beauty, builtin)
     return dict(bvh8t=launches["bvh8t"],
-                coat={BENCH_ROW: coat, SCENE: coat_builtin})
+                coat={BENCH_ROW: counts["coat"], SCENE: builtin_counts["coat"]},
+                shade={BENCH_ROW: counts["shade"],
+                       SCENE: builtin_counts["shade"]})
 
 
 def parity(g, ng, c, nc) -> tuple:
@@ -3104,6 +3304,7 @@ def main() -> int:
     phases = (
         ("kernel vs plain", lambda: phase_kernel(ds, settings, log)),
         ("coat kernel", lambda: phase_coat(scene, card, log)),
+        ("shade kernel", lambda: phase_shade(card, log)),
         ("full frame", lambda: phase_full_frame(scene, settings, card,
                                                 batches, frames)),
         ("slice parity", lambda: phase_parity(scene, settings)),
@@ -3134,11 +3335,13 @@ def main() -> int:
                              results["builtin scenes"],
                              results["cli and scene files"],
                              results["multi-gpu"])
-    coat = results["full frame"]["coat"]
-    for kind, entry in zip(("eval", "sample"), results["coat kernel"]):
-        entry["launches"] = coat[BENCH_ROW][kind]
-        entry["scene_launches"] = {SCENE: coat[SCENE][kind]}
-    kernels += results["coat kernel"] + results["probes"]
+    for layer, phase in (("coat", "coat kernel"), ("shade", "shade kernel")):
+        frame = results["full frame"][layer]
+        for kind, entry in zip(("eval", "sample"), results[phase]):
+            entry["launches"] = frame[BENCH_ROW][kind]
+            entry.setdefault("scene_launches", {})[SCENE] = frame[SCENE][kind]
+    kernels += (results["coat kernel"] + results["shade kernel"]
+                + results["probes"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

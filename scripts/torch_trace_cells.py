@@ -19,8 +19,9 @@ warm-up of its files), renders its 1-spp passes with
   benchmark's `device.launches_per_pass` and `integrator.syncs_per_pass`
   count them), the runtime's launch calls inside `rt.coat.*` spans, idle
   seconds by the innermost open `rt.` span, the program's counters
-  (`sync.<site>`, `lanes.*`, `coat.kernel_lanes`: the lanes the coat
-  kernel took) and the pass times. With `--bare` the
+  (`sync.<site>`, `lanes.*`, `coat.kernel_lanes` and
+  `shade.kernel_lanes`: the lanes the coat kernel and the shading kernel
+  took) and the pass times. With `--bare` the
   sessions run without the profiler, for their pass times and counters.
 
 Prints one JSON object a cell (also written to `--out`).
@@ -154,6 +155,8 @@ def summarize(counts: dict, n_passes: int) -> dict:
             "loop_syncs_per_pass": sum(syncs.values()) - coat,
             "coat_kernel_lanes_per_pass":
                 counts.get("coat.kernel_lanes", 0) / n_passes,
+            "shade_kernel_lanes_per_pass":
+                counts.get("shade.kernel_lanes", 0) / n_passes,
             "lane_use_pct": (100.0 * counts.get("lanes.alive", 0) / run
                              if run else None)}
 

@@ -1,5 +1,5 @@
-"""The CUDA walks, the coat kernel and the probes on the card, against
-their plain PyTorch versions.
+"""The CUDA walks, the coat kernel, the shading kernel and the probes on
+the card, against their plain PyTorch versions.
 
 Marked `cuda`: the kernels have no CPU mode, so these tests skip without a
 card. This file imports no jax and nothing of the JAX package (the machine
@@ -17,6 +17,7 @@ from tpu_raytracing_torch.accel import build_bvh
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.device import scene_buffers as SB
 from tpu_raytracing_torch.integrator.accumulate import render_accumulated
+from tpu_raytracing_torch.integrator import render as R
 from tpu_raytracing_torch.integrator.render import render
 from tpu_raytracing_torch.ops import bsdf as TB
 from tpu_raytracing_torch.ops import bsdf_dispatch as D
@@ -25,6 +26,7 @@ from tpu_raytracing_torch.ops import traverse_kernels as TK
 from tpu_raytracing_torch.ops.traverse_bvh8t import (
     intersect_tris_bvh8t, intersect_tris_plain,
 )
+from tpu_raytracing_torch.ops.rng import SamplerConfig
 from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
 from tpu_raytracing_torch.probes import bf16_vpu as P4
 from tpu_raytracing_torch.probes import iter_cost as P3
@@ -36,8 +38,8 @@ from tpu_raytracing_torch.settings import RaytracerSettings
 
 from chip_smoke import (
     COAT_SETTINGS, EXACT, PERSISTENT, at_t_limits, axis_limits, axis_rays,
-    bunnies_glb, coat_calls, compare_trees, edge_rays, emissive_box,
-    repeated_triangles, textured_cubes,
+    bsdf_lanes, bunnies_glb, coat_calls, compare_trees, edge_rays,
+    emissive_box, repeated_triangles, textured_cubes,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1017,6 +1019,144 @@ def test_coat_frame_with_plain_twin_bit_for_bit(card, monkeypatch):
     assert L.layered_eval.launches > launched
     monkeypatch.setattr(D, "layered_eval", L.layered_eval_plain)
     monkeypatch.setattr(D, "layered_sample", L.layered_sample_plain)
+    b = render_accumulated(scene, s, spp_chunk=1)
+    assert a.beauty.mean() > 0 and a.rays_traced == b.rays_traced
+    np.testing.assert_array_equal(a.beauty.view(np.int32),
+                                  b.beauty.view(np.int32))
+
+
+# ---------------------------------------- the shading kernel (other kinds)
+
+SHADE_KINDS = (0, 1, 2, 3, 4, 5)
+SHADE_CFG = SamplerConfig("independent", seed=3)
+
+
+def _shade_lanes(n, seed, kinds=SHADE_KINDS, edge=0.05):
+    params, wo, wi, stream = bsdf_lanes(n, seed, kinds, edge)
+    return (TB.BsdfParams(*(x.cuda() for x in params)), wo.cuda(), wi.cuda(),
+            type(stream)(*(x.cuda() for x in stream)))
+
+
+def _shade_sample_same(params, wo, stream, kinds=SHADE_KINDS,
+                       active=None) -> bool:
+    """The kernel's sample against the plain twins', at the one `allowed`
+    the kernel takes (ALL_COMPONENTS, the integrator's)."""
+    got, gs = D.bsdf_sample(params, wo, TB.ALL_COMPONENTS, SHADE_CFG, stream,
+                            kinds, active)
+    want, ws = D.bsdf_sample_plain(params, wo, TB.ALL_COMPONENTS, SHADE_CFG,
+                                   stream, kinds, active)
+    return _same_bits((*got, *gs), (*want, *ws))
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4, "mixed"])
+def test_shade_sample_kernel_vs_plain(card, kind):
+    kinds = SHADE_KINDS if kind == "mixed" else (kind,)
+    params, wo, _, stream = _shade_lanes(16385, 7, kinds)
+    launched = D.bsdf_sample.launches
+    assert _shade_sample_same(params, wo, stream)
+    assert D.bsdf_sample.launches == launched + 1
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4, "mixed"])
+def test_shade_eval_kernel_vs_plain(card, kind):
+    kinds = SHADE_KINDS if kind == "mixed" else (kind,)
+    params, wo, wi, _ = _shade_lanes(16385, 8, kinds)
+    launched = D.bsdf_eval.launches
+    got = D.bsdf_eval(params, wo, wi, SHADE_KINDS)
+    assert _same_bits(got, D.bsdf_eval_plain(params, wo, wi, SHADE_KINDS))
+    assert D.bsdf_eval.launches == launched + 1
+    if kind in (1, 2):  # delta BSDFs evaluate to zero
+        assert not bool(got.any())
+
+
+def test_shade_edge_directions(card):
+    """Every wo and wi on an edge direction: the poles, wo.z = 0 and
+    +-1e-7, below the surface (total internal reflection in the
+    dielectrics, a hit from inside the conductors), across all kinds, with
+    the callers' kinds narrowed too."""
+    params, wo, wi, stream = _shade_lanes(4099, 9, edge=1.0)
+    assert bool((wo[:, 2] == 0).any()) and bool((wo[:, 2] < 0).any())
+    for kinds in (SHADE_KINDS, (0, 3), (4,), (0, 5), ()):
+        assert _shade_sample_same(params, wo, stream, kinds), kinds
+        assert _same_bits(D.bsdf_eval(params, wo, wi, kinds),
+                          D.bsdf_eval_plain(params, wo, wi, kinds)), kinds
+    tir = (params.kind == 1) & ~D.bsdf_sample_plain(
+        params, wo, TB.TRANSMISSION, SHADE_CFG, stream, SHADE_KINDS)[0].valid
+    assert bool(tir.any())
+
+
+def test_shade_coated_lanes_and_active(card):
+    """Coated lanes among the others: the kernel leaves them null, the coat
+    kernel writes those the caller consumes (once in each of the two
+    paths)."""
+    params, wo, wi, stream = _shade_lanes(8193, 10)
+    act = torch.from_numpy(np.random.default_rng(10).random(8193) < 0.5).cuda()
+    launched = L.layered_sample.launches
+    assert _shade_sample_same(params, wo, stream, active=act)
+    assert L.layered_sample.launches == launched + 2
+    assert _same_bits(D.bsdf_eval(params, wo, wi, SHADE_KINDS, act),
+                      D.bsdf_eval_plain(params, wo, wi, SHADE_KINDS, act))
+
+
+def test_shade_repeats_bit_for_bit(card):
+    params, wo, wi, stream = _shade_lanes(4097, 11)
+
+    def run():
+        s, st = D.bsdf_sample(params, wo, TB.ALL_COMPONENTS, SHADE_CFG,
+                              stream, SHADE_KINDS)
+        return (*s, D.bsdf_eval(params, wo, wi, SHADE_KINDS))
+
+    first = run()
+    for _ in range(2):
+        assert _same_bits(run(), first)
+
+
+def test_shade_empty_call_launches_nothing(card):
+    params, wo, wi, stream = _shade_lanes(8, 12)
+    none = TB.BsdfParams(*(x[:0] for x in params))
+    s0 = type(stream)(*(x[:0] for x in stream))
+    launched = (D.bsdf_eval.launches, D.bsdf_sample.launches)
+    f = D.bsdf_eval(none, wo[:0], wi[:0], SHADE_KINDS)
+    s, st = D.bsdf_sample(none, wo[:0], TB.ALL_COMPONENTS, SHADE_CFG, s0,
+                          SHADE_KINDS)
+    assert f.shape == (0, 3) and s.wi.shape == (0, 3) and s.valid.shape == (0,)
+    assert (D.bsdf_eval.launches, D.bsdf_sample.launches) == launched
+
+
+def test_shade_rejects_what_the_kernel_does_not_take(card):
+    params, wo, wi, stream = _shade_lanes(64, 13)
+    with pytest.raises(ValueError, match="expected"):
+        D.bsdf_eval(params, wo, wi.double(), SHADE_KINDS)
+    with pytest.raises(ValueError, match="expected"):
+        D.bsdf_eval(params, wo, wi[:, :2], SHADE_KINDS)
+    with pytest.raises(ValueError, match="expected"):
+        D.bsdf_eval(params, wo, wi.cpu(), SHADE_KINDS)
+    with pytest.raises(ValueError, match="expected"):
+        D.bsdf_eval(params._replace(kind=params.kind.long()), wo, wi,
+                    SHADE_KINDS)
+    with pytest.raises(ValueError, match="expected"):
+        D.bsdf_sample(params._replace(kappa=params.kappa[:32]), wo,
+                      TB.ALL_COMPONENTS, SHADE_CFG, stream, SHADE_KINDS)
+    for allowed in (torch.tensor(TB.ALL_COMPONENTS), TB.REFLECTION,
+                    TB.TRANSMISSION, TB.SPECULAR, 0):
+        with pytest.raises(ValueError, match="allowed"):
+            D.bsdf_sample(params, wo, allowed, SHADE_CFG, stream, SHADE_KINDS)
+
+
+@pytest.mark.parametrize("name", ["rough_dielectric", "rough_metal"])
+def test_shade_frame_with_plain_twins_bit_for_bit(card, monkeypatch, name):
+    """A small frame through render_accumulated(spp_chunk=1): the same
+    image with the kernel and with the plain twins routed in."""
+    scene = get_test_scene(name).scene_func()
+    scene.camera = scene.camera.with_resolution(48, 40)
+    s = RaytracerSettings(samples_per_pixel=2, light_sample_count=4,
+                          max_ray_depth=8)
+    launched = (D.bsdf_eval.launches, D.bsdf_sample.launches)
+    a = render_accumulated(scene, s, spp_chunk=1)
+    assert D.bsdf_eval.launches > launched[0]
+    assert D.bsdf_sample.launches > launched[1]
+    monkeypatch.setattr(R, "bsdf_eval", D.bsdf_eval_plain)
+    monkeypatch.setattr(R, "bsdf_sample", D.bsdf_sample_plain)
     b = render_accumulated(scene, s, spp_chunk=1)
     assert a.beauty.mean() > 0 and a.rays_traced == b.rays_traced
     np.testing.assert_array_equal(a.beauty.view(np.int32),

@@ -1,5 +1,6 @@
-"""The coat kernel's contract on the CPU (csrc/layered_walk.cu, whose own
-tests run on the card in tests/test_torch_cuda.py).
+"""The coat kernel's contract on the CPU (csrc/layered_walk.cu with the
+pieces it shares in csrc/bsdf_common.cuh, whose own tests run on the card
+in tests/test_torch_cuda.py).
 
 On CPU tensors `layered_eval` and `layered_sample` run their plain twins
 and never build or load the CUDA library. The kernel's constants are read
@@ -25,11 +26,16 @@ from tpu_raytracing_torch.ops import linalg
 from tpu_raytracing_torch.probes.common import source_int
 
 SOURCE = "layered_walk.cu"
-TEXT = (native_cuda.CSRC / SOURCE).read_text()
+HEADER = "bsdf_common.cuh"  # the BSDF pieces it shares with bsdf_kinds.cu
+TEXT = "\n".join((native_cuda.CSRC / name).read_text()
+                 for name in (SOURCE, HEADER))
 
 
 def _int(name: str) -> int:
-    return source_int(SOURCE, f"constexpr int {name}")
+    try:
+        return source_int(SOURCE, f"constexpr int {name}")
+    except LookupError:
+        return source_int(HEADER, f"constexpr int {name}")
 
 
 def _lanes(n: int, seed: int):

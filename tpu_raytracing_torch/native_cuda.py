@@ -136,6 +136,12 @@ SIGNATURES = {
     "tpu_rt_layered_sample": [_P] * 15 + [_I, _P],
     # the eval's seven coat fields, wo, draw_base, wi_out, f_out, pdf_out,
     # comp_out, valid_out, steps | n | stream
+    "tpu_rt_bsdf_eval": [_P] * 9 + [_I, _I, _P],
+    # kind, albedo, eta, kappa, alpha_x, alpha_y, wo, wi, f_out | kinds, n |
+    # stream
+    "tpu_rt_bsdf_sample": [_P] * 14 + [_I, _I, _P],
+    # the eval's seven inputs, u2, u1, wi_out, f_out, pdf_out, comp_out,
+    # valid_out | kinds, n | stream
 }
 
 

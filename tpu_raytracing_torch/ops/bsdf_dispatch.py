@@ -1,11 +1,21 @@
 """Top-level BSDF dispatch over per-lane material kinds.
 
-Counterpart of tpu_raytracing/ops/bsdf_dispatch.py on its predicated path
-(what JAX runs on the CPU): each kind that can occur in the scene is
-evaluated and per-lane kinds select the result. The layered walk of
-CoatedDiffuse costs about 100 times any other kind, so it runs only on the
-coated lanes the caller consumes, gathered by boolean index; per-lane math
-is unchanged, so those lanes get the values the predicated path gives them.
+Counterpart of tpu_raytracing/ops/bsdf_dispatch.py.
+
+- On CUDA tensors `bsdf_sample` and `bsdf_eval` launch
+  csrc/bsdf_kinds.cu for every kind but the coat's: one thread a lane
+  computes only its lane's kind, bit for bit with the plain twins; there
+  is no fallback.
+- On CPU tensors they run the plain twins, `bsdf_sample_plain` and
+  `bsdf_eval_plain`: the JAX package's predicated path (what JAX runs on
+  the CPU), where each kind that can occur in the scene is computed over
+  every lane and per-lane kinds select the result.
+
+Either way the layered walk of CoatedDiffuse, which costs about 100 times
+any other kind, runs after on the coated lanes the caller consumes only,
+gathered by boolean index (ops/layered.py: its own kernel on the card);
+per-lane math is unchanged, so those lanes get the values the predicated
+path gives them.
 
 Every bsdf_sample consumes exactly 3 sampler dimensions whatever the lane's
 material, so streams stay aligned across the batch; the layered BSDF
@@ -21,7 +31,7 @@ from ..device.scene_buffers import (
     MAT_COATED_DIFFUSE, MAT_DIFFUSE, MAT_ROUGH_CONDUCTOR, MAT_ROUGH_DIELECTRIC,
     MAT_SMOOTH_CONDUCTOR, MAT_SMOOTH_DIELECTRIC,
 )
-from .. import tracing
+from .. import native_cuda, tracing
 from . import bsdf as B
 from .layered import layered_eval, layered_sample
 from .rng import SampleStream, SamplerConfig, hash_u32, sample_uniform, sample_uniform2
@@ -50,12 +60,31 @@ def _take(params: B.BsdfParams, lanes) -> B.BsdfParams:
     return B.BsdfParams(*(x[lanes] for x in params))
 
 
+def _kinds_mask(kinds) -> int:
+    """The kernel's `kinds`: bit k set where kind k can occur."""
+    return sum(1 << int(k) for k in kinds)
+
+
 def bsdf_eval(params: B.BsdfParams, wo, wi, kinds: Tuple[int, ...],
               active=None):
     """f(wo, wi) per lane; delta BSDFs evaluate to zero.
 
     active (optional bool mask): the lanes whose result is consumed; the
-    layered walk skips coated lanes outside it, which return zero."""
+    layered walk skips coated lanes outside it, which return zero. CUDA
+    tensors launch the kernel for the other kinds (adding one to
+    `bsdf_eval.launches` and the lanes to the traced counter
+    `shade.kernel_lanes`); CPU tensors run `bsdf_eval_plain`."""
+    if not native_cuda.on_card("bsdf_eval", wo):
+        return bsdf_eval_plain(params, wo, wi, kinds, active)
+    kinds = _rough_kinds(kinds)
+    return _coat_eval(params, wo, wi, kinds, active,
+                      _eval_kernel(params, wo, wi, kinds))
+
+
+def bsdf_eval_plain(params: B.BsdfParams, wo, wi, kinds: Tuple[int, ...],
+                    active=None):
+    """`bsdf_eval` as the predicated twin: every kind in `kinds` over
+    every lane, selected per lane."""
     kinds = _rough_kinds(kinds)
     k = params.kind
     f = torch.zeros_like(wo)
@@ -74,6 +103,12 @@ def bsdf_eval(params: B.BsdfParams, wo, wi, kinds: Tuple[int, ...],
             B.ts_eval(wo, wi, params.eta[..., 0], params.alpha_x,
                       params.alpha_y),
             f)
+    return _coat_eval(params, wo, wi, kinds, active, f)
+
+
+def _coat_eval(params: B.BsdfParams, wo, wi, kinds, active, f):
+    """f with the coated lanes the caller consumes written by the layered
+    walk."""
     if MAT_COATED_DIFFUSE in kinds:
         lanes = _coated_lanes(params, active)
         if lanes.numel():
@@ -128,7 +163,31 @@ def bsdf_sample(
 
     active (optional bool mask): the lanes whose sample is consumed; the
     layered walk skips coated lanes outside it, which return a null
-    sample."""
+    sample. CUDA tensors launch the kernel for the other kinds (adding one
+    to `bsdf_sample.launches` and the lanes to `shade.kernel_lanes`),
+    which samples every component and so takes only the int
+    ALL_COMPONENTS as `allowed`; CPU tensors run `bsdf_sample_plain`."""
+    if not native_cuda.on_card("bsdf_sample", wo):
+        return bsdf_sample_plain(params, wo, allowed, cfg, stream, kinds,
+                                 active)
+    kinds = _rough_kinds(kinds)
+    u2, stream = sample_uniform2(cfg, stream)
+    u1, stream = sample_uniform(cfg, stream)
+    out = _sample_kernel(params, wo, u2, u1, allowed, kinds)
+    return _coat_sample(params, wo, stream, kinds, active, out), stream
+
+
+def bsdf_sample_plain(
+    params: B.BsdfParams,
+    wo,
+    allowed,
+    cfg: SamplerConfig,
+    stream: SampleStream,
+    kinds: Tuple[int, ...],
+    active=None,
+):
+    """`bsdf_sample` as the predicated twin: every kind in `kinds` over
+    every lane, merged per lane."""
     kinds = _rough_kinds(kinds)
     k = params.kind
     u2, stream = sample_uniform2(cfg, stream)
@@ -164,6 +223,13 @@ def bsdf_sample(
         s = B.ts_sample(wo, params.eta[..., 0], params.alpha_x,
                         params.alpha_y, allowed, u2, u1)
         out = _merge(out, k == MAT_ROUGH_DIELECTRIC, s)
+    return _coat_sample(params, wo, stream, kinds, active, out), stream
+
+
+def _coat_sample(params: B.BsdfParams, wo, stream: SampleStream, kinds,
+                 active, out: B.BsdfSample) -> B.BsdfSample:
+    """out with the coated lanes the caller consumes written by the layered
+    walk, whose draws hash the stream after the dispatch's three."""
     if MAT_COATED_DIFFUSE in kinds:
         lanes = _coated_lanes(params, active)
         if lanes.numel():
@@ -176,4 +242,71 @@ def bsdf_sample(
                                    draw_base)
                 for dst, src in zip(out, s):
                     dst[lanes] = src
-    return out, stream
+    return out
+
+
+# ------------------------------------------------------- the card's kernel
+
+def _card_args(name: str, params: B.BsdfParams, wo, extra) -> list:
+    """The fields of `params` the kernel reads, wo and `extra` ((field,
+    tensor, dtype, shape after n) entries), each checked and contiguous."""
+    n, f32 = wo.shape[0], torch.float32
+    fields = [("kind", params.kind, torch.int32, ()),
+              ("albedo", params.albedo, f32, (3,)),
+              ("eta", params.eta, f32, (3,)),
+              ("kappa", params.kappa, f32, (3,)),
+              ("alpha_x", params.alpha_x, f32, ()),
+              ("alpha_y", params.alpha_y, f32, ()),
+              ("wo", wo, f32, (3,)), *extra]
+    return [native_cuda.check_tensor(f"{name}: {field}", x, (n, *width),
+                                     dtype, wo.device)
+            for field, x, dtype, width in fields]
+
+
+def _eval_kernel(params: B.BsdfParams, wo, wi, kinds) -> torch.Tensor:
+    """f of every lane of a kind other than the coat's, zero on the coated
+    lanes; `kinds` as `_rough_kinds` gives them."""
+    args = _card_args("bsdf_eval", params, wo,
+                      [("wi", wi, torch.float32, (3,))])
+    f = torch.empty_like(args[-1])
+    n = wo.shape[0]
+    if n:
+        native_cuda.launch("tpu_rt_bsdf_eval", wo.device,
+                           *(x.data_ptr() for x in (*args, f)),
+                           _kinds_mask(kinds), n)
+        bsdf_eval.launches += 1
+        tracing.count("shade.kernel_lanes", n)
+    return f
+
+
+def _sample_kernel(params: B.BsdfParams, wo, u2, u1, allowed,
+                   kinds) -> B.BsdfSample:
+    """The sample of every lane of a kind other than the coat's from the
+    draws u2 (n, 2) and u1 (n,), the null sample on the coated lanes;
+    `allowed` must be the int ALL_COMPONENTS, the integrator's."""
+    if not isinstance(allowed, int) or allowed != B.ALL_COMPONENTS:
+        raise ValueError(f"bsdf_sample: the kernel samples every component "
+                         f"and takes `allowed` = {B.ALL_COMPONENTS} only, "
+                         f"got {allowed!r}")
+    args = _card_args("bsdf_sample", params, wo,
+                      [("u2", u2, torch.float32, (2,)),
+                       ("u1", u1, torch.float32, ())])
+    n, dev = wo.shape[0], wo.device
+    out = B.BsdfSample(
+        wi=torch.empty((n, 3), dtype=torch.float32, device=dev),
+        f=torch.empty((n, 3), dtype=torch.float32, device=dev),
+        pdf=torch.empty(n, dtype=torch.float32, device=dev),
+        component=torch.empty(n, dtype=torch.int32, device=dev),
+        valid=torch.empty(n, dtype=torch.bool, device=dev),
+    )
+    if n:
+        native_cuda.launch("tpu_rt_bsdf_sample", dev,
+                           *(x.data_ptr() for x in (*args, *out)),
+                           _kinds_mask(kinds), n)
+        bsdf_sample.launches += 1
+        tracing.count("shade.kernel_lanes", n)
+    return out
+
+
+bsdf_eval.launches = 0
+bsdf_sample.launches = 0

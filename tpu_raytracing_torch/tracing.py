@@ -28,6 +28,7 @@ Counters are kept here until `snapshot()`; a device value is kept as its
     lanes.alive   lanes alive at the top of each bounce
     lanes.run     lanes each bounce ran over
     coat.kernel_lanes   lanes the coat's kernel took (ops/layered.py)
+    shade.kernel_lanes  lanes the shading kernel took (ops/bsdf_dispatch.py)
     aov.lanes     lanes the AOV pass handed the walk active
     host_ns.<span>  host nanoseconds inside a span opened with
                   `host_ns=True` (the rt.aov spans)
