@@ -1,8 +1,8 @@
 """The brute kernel's pieces that run on the CPU (K3, csrc/t8_brute.cu).
 
 - Equal-t ties: a mesh that lists each triangle 20 times
-  (chip_smoke.py::repeated_triangles), compiled by both packages, through
-  the plain brute version and the JAX package's Pallas brute kernel in
+  (torch_fixtures.py::repeated_triangles), compiled by both packages,
+  through the plain brute version and the JAX package's Pallas brute kernel in
   interpret mode (selected with TPU_RT_BRUTE_GROUPS, as
   tests/test_torch_walks.py selects it): the same winners, and the
   winners the tie rule names.
@@ -37,7 +37,7 @@ from tpu_raytracing_torch.ops.intersect import (prefilter_rejects,
 from tpu_raytracing_torch.ops.linalg import cross, dot
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
-from chip_smoke import edge_rays, repeated_triangles
+from torch_fixtures import edge_rays, repeated_triangles
 
 torch.set_num_threads(1)
 
@@ -218,7 +218,7 @@ def test_prefilter_keeps_rays_at_edges(tri, u, w, tilt, side):
 
 @pytest.mark.parametrize("name", ["bunny", "metal", "repeated"])
 def test_prefilter_on_edge_rays(scenes, name):
-    """chip_smoke.py::edge_rays (vertices, edges, either side of them,
+    """torch_fixtures.py::edge_rays (vertices, edges, either side of them,
     nearly parallel) against every row of the scene: the prefilter keeps
     every row that Moller-Trumbore accepts at any t, keeps no more than a
     few rows a ray past those, and rejects nearly all the rest."""

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import bsdf_lanes
+from torch_fixtures import bsdf_lanes
 from tpu_raytracing_torch import native_cuda, tracing
 from tpu_raytracing_torch.device import scene_buffers as SB
 from tpu_raytracing_torch.ops import bsdf as B
@@ -141,7 +141,7 @@ def test_cpu_tensors_run_the_plain_twin(kind, monkeypatch):
     monkeypatch.setattr(native_cuda, "load", refuse)
     params, wo, wi, stream = bsdf_lanes(96, 0)
     active = _active(96, 0, "mixed")
-    launched = (D.bsdf_eval.launches, D.bsdf_sample.launches)
+    launched = native_cuda.launch_counts()
     tracing.reset()
     tracing.enable()
     try:
@@ -157,7 +157,7 @@ def test_cpu_tensors_run_the_plain_twin(kind, monkeypatch):
     finally:
         tracing.disable()
     assert _same_bits(got, want)
-    assert (D.bsdf_eval.launches, D.bsdf_sample.launches) == launched
+    assert native_cuda.launch_counts() == launched
     assert "shade.kernel_lanes" not in tracing.snapshot()
 
 

@@ -6,7 +6,8 @@ t8 tables: node records, the real child records in slot order, and the
 triangle rows that hold a triangle. These tests decode the card layout
 back into the JAX package's `_bvh8t_layout` arrays bit for bit, at every
 width the kernel is built for. The kernel itself is held against the plain
-walk on the card (tests/test_torch_cuda.py).
+walk on the card (tests/test_torch_cuda.py). On the CPU every kernel
+wrapper runs its plain version and native_cuda counts no launch.
 """
 import dataclasses
 
@@ -20,10 +21,10 @@ from tpu_raytracing.device import compile_scene as jax_compile_scene
 from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
 from tpu_raytracing_torch.device import compile_scene, from_jax_leaves
 from tpu_raytracing_torch.device import scene_buffers as SB
+from tpu_raytracing_torch.native_cuda import launch_counts, reset_launch_counts
 from tpu_raytracing_torch.ops.traverse_bvh8t import (
     intersect_tris_bvh8t, intersect_tris_plain,
 )
-from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
 torch.set_num_threads(1)
@@ -202,22 +203,114 @@ def test_from_jax_leaves_builds_the_card():
                           getattr(tds.t8_card, k).numpy()), k
 
 
+def _cpu_rays(ds, n: int):
+    """n rays from the scene's center, every fifth lane inactive."""
+    g = np.random.default_rng(21)
+    o = np.repeat(ds.bounds_center.numpy()[None], n, axis=0)
+    d = g.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return [torch.from_numpy(x) for x in (
+        o, d, np.full(n, 1e-3, np.float32), np.full(n, np.inf, np.float32),
+        np.arange(n) % 5 != 2)]
+
+
 @pytest.mark.parametrize("early_exit", [False, True],
                          ids=["closest_hit", "any_hit"])
 def test_cpu_tensors_take_the_plain_walk(bunny, early_exit):
     """On CPU tensors the wrapper runs the plain walk and launches
     nothing."""
-    g = np.random.default_rng(21)
-    n = 128
-    o = np.repeat(bunny.bounds_center.numpy()[None], n, axis=0)
-    d = g.normal(0, 1, (n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    args = [torch.from_numpy(x) for x in (
-        o, d, np.full(n, 1e-3, np.float32), np.full(n, np.inf, np.float32),
-        np.arange(n) % 5 != 2)]
+    args = _cpu_rays(bunny, 128)
     reset_launch_counts()
     got = intersect_tris_bvh8t(bunny, *args, early_exit)
     want = intersect_tris_plain(bunny, *args, early_exit)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert intersect_tris_bvh8t.launches == {"closest_hit": 0, "any_hit": 0}
+    assert not launch_counts()
+
+
+def _wrapper_calls(name: str, ds):
+    """(the kernel wrapper's answer, its plain version's) on CPU tensors."""
+    from tpu_raytracing_torch.ops import bsdf as B
+    from tpu_raytracing_torch.ops import bsdf_dispatch as D
+    from tpu_raytracing_torch.ops import layered as L
+    from tpu_raytracing_torch.ops import traverse_kernels as TK
+    from tpu_raytracing_torch.ops.rng import SamplerConfig
+    from tpu_raytracing_torch.probes import bf16_vpu as P4
+    from tpu_raytracing_torch.probes import iter_cost as P3
+    from tpu_raytracing_torch.probes import slab_cost as P2
+    from tpu_raytracing_torch.probes import walk_cost as P1
+
+    from torch_fixtures import bsdf_lanes
+
+    if name in TK.WALKS:
+        plain = {"bvh8t": intersect_tris_plain,
+                 "brute": TK.intersect_tris_brute_plain,
+                 "quad": TK.intersect_tris_quad_plain,
+                 "quadrow": lambda *a: TK.intersect_tris_quad_plain(
+                     *a, rowrec=True),
+                 "pair": TK.intersect_tris_pair_plain,
+                 "walk": TK.intersect_tris_skiplink_plain}[name]
+        args = _cpu_rays(ds, 64)
+        return TK.WALKS[name](ds, *args), plain(ds, *args)
+    if name.startswith("layered_"):
+        params, wo, wi, _ = bsdf_lanes(64, 1, kinds=(5,))
+        draw = torch.from_numpy(
+            np.random.default_rng(1).integers(0, 1 << 32, 64))
+        third = wi if name == "layered_eval" else draw
+        return (getattr(L, name)(params, wo, third),
+                getattr(L, name + "_plain")(params, wo, third))
+    if name.startswith("bsdf_"):
+        params, wo, wi, stream = bsdf_lanes(64, 2)
+        kinds = (0, 1, 2, 3, 4, 5)
+        if name == "bsdf_eval":
+            return (D.bsdf_eval(params, wo, wi, kinds),
+                    D.bsdf_eval_plain(params, wo, wi, kinds))
+        cfg = SamplerConfig("independent", seed=3)
+        return (D.bsdf_sample(params, wo, B.ALL_COMPONENTS, cfg, stream,
+                              kinds),
+                D.bsdf_sample_plain(params, wo, B.ALL_COMPONENTS, cfg, stream,
+                                    kinds))
+    if name == "iter_cost":
+        ins, config = P3.script_inputs(), P3.CONFIGS[3]
+        return (P3.iter_cost(*ins, *config, 8),
+                P3.iter_cost_plain(*ins, *config, 8))
+    if name == "bf16_vpu":
+        box, ray = P4.script_inputs()["bfloat16"]
+        return P4.bf16_vpu(box, ray, 8), P4.bf16_vpu_plain(box, ray, 8)
+    if name == "slab_cost":
+        ins = P2.varied_inputs()
+        return (P2.slab_cost(*ins, "row0", 8),
+                P2.slab_cost_plain(*ins, "row0", 8))
+    ins = P1.varied_inputs()
+    return (P1.walk_cost(*ins, "cond50", 8),
+            P1.walk_cost_plain(*ins, "cond50", 8))
+
+
+def _flat(x):
+    """The tensors of a wrapper's answer, nested tuples flattened."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _flat(v)]
+
+
+@pytest.mark.parametrize("name", [
+    "bvh8t", "brute", "quad", "quadrow", "pair", "walk", "layered_eval",
+    "layered_sample", "bsdf_eval", "bsdf_sample", "iter_cost", "bf16_vpu",
+    "slab_cost", "walk_cost"])
+def test_cpu_call_launches_nothing(bunny, monkeypatch, name):
+    """Each of the 14 kernel wrappers on CPU tensors: its plain version's
+    answer bit for bit, no launch counted, and the CUDA library never
+    loaded."""
+    from tpu_raytracing_torch import native_cuda
+
+    def refuse():
+        raise AssertionError("the CUDA library was loaded for CPU tensors")
+
+    monkeypatch.setattr(native_cuda, "load", refuse)
+    reset_launch_counts()
+    got, want = _wrapper_calls(name, bunny)
+    got, want = _flat(got), _flat(want)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    assert not launch_counts()

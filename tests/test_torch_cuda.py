@@ -8,6 +8,7 @@ with the card has no jax), so it runs there on its own:
     python3 -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from tpu_raytracing_torch.device import scene_buffers as SB
 from tpu_raytracing_torch.integrator.accumulate import render_accumulated
 from tpu_raytracing_torch.integrator import render as R
 from tpu_raytracing_torch.integrator.render import render
+from tpu_raytracing_torch.native_cuda import launch_counts, reset_launch_counts
 from tpu_raytracing_torch.ops import bsdf as TB
 from tpu_raytracing_torch.ops import bsdf_dispatch as D
 from tpu_raytracing_torch.ops import layered as L
@@ -27,19 +29,19 @@ from tpu_raytracing_torch.ops.traverse_bvh8t import (
     intersect_tris_bvh8t, intersect_tris_plain,
 )
 from tpu_raytracing_torch.ops.rng import SamplerConfig
-from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
+from tpu_raytracing_torch.ops.walk_common import launch_key
 from tpu_raytracing_torch.probes import bf16_vpu as P4
 from tpu_raytracing_torch.probes import iter_cost as P3
-from tpu_raytracing_torch.probes import reset_launch_counts as reset_probes
 from tpu_raytracing_torch.probes import slab_cost as P2
 from tpu_raytracing_torch.probes import walk_cost as P1
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
-from chip_smoke import (
+from torch_fixtures import (
     COAT_SETTINGS, EXACT, PERSISTENT, at_t_limits, axis_limits, axis_rays,
     bsdf_lanes, bunnies_glb, coat_calls, compare_trees, edge_rays,
-    emissive_box, repeated_triangles, textured_cubes,
+    emissive_box, path_rays, repeated_triangles, shade_calls,
+    textured_cubes,
 )
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +56,21 @@ WALKS = {
     "pair": (TK.intersect_tris_pair, TK.intersect_tris_pair_plain),
     "walk": (TK.intersect_tris_skiplink, TK.intersect_tris_skiplink_plain),
 }
+# the coat's and the shading kernel's entries, as native_cuda counts them
+COAT = {"eval": ("tpu_rt_layered_eval", ""),
+        "sample": ("tpu_rt_layered_sample", "")}
+SHADE = {"eval": ("tpu_rt_bsdf_eval", ""),
+         "sample": ("tpu_rt_bsdf_sample", "")}
+
+
+def _n(key) -> int:
+    """The launches native_cuda counted under (entry, tag) since its last
+    reset."""
+    return launch_counts().get(key, 0)
+
+
+def _walk_n(walk: str, early_exit: bool) -> int:
+    return _n(launch_key(walk, early_exit))
 
 
 @pytest.fixture(scope="module")
@@ -62,6 +79,25 @@ def cuda_scene():
         pytest.skip("needs a CUDA device: the walks are CUDA kernels")
     scene = get_test_scene("coated_diffuse_bunny").scene_func()
     return compile_scene(scene, "cuda")
+
+
+@pytest.fixture(scope="module")
+def path_batches(cuda_scene):
+    """The bunny frame's camera rays and their shadow rays (500x500, the
+    bench frame's settings), by mode."""
+    s = RaytracerSettings(samples_per_pixel=8, light_sample_count=1,
+                          max_ray_depth=8)
+    return path_rays(cuda_scene, s)
+
+
+def _batch(ds, path_batches, rays: str, n: int, seed: int,
+           early_exit: bool):
+    """`rays` "random": _rays(n, seed); "path": path_batches' batch of the
+    mode."""
+    if rays == "path":
+        mode = "any_hit" if early_exit else "closest_hit"
+        return list(path_batches[mode][:5])
+    return _rays(ds, n, seed, early_exit)
 
 
 def _rays(ds, n, seed, early_exit):
@@ -100,14 +136,15 @@ def _assert_agree(tk, bk, tp, bp, act, early_exit, exact=False):
 
 @pytest.mark.parametrize("early_exit", [False, True],
                          ids=["closest_hit", "any_hit"])
-def test_kernel_vs_plain(cuda_scene, early_exit):
+@pytest.mark.parametrize("rays", ["random", "path"])
+def test_kernel_vs_plain(cuda_scene, path_batches, rays, early_exit):
+    """K1/K2 on 65,536 random rays, and on the bunny frame's 250,000 camera
+    rays and their shadow rays."""
     ds = cuda_scene
-    n = 65536
-    args = _rays(ds, n, 16, early_exit)
+    args = _batch(ds, path_batches, rays, 65536, 16, early_exit)
     reset_launch_counts()
     tk, bk = intersect_tris_bvh8t(ds, *args, early_exit)
-    mode = "any_hit" if early_exit else "closest_hit"
-    assert intersect_tris_bvh8t.launches[mode] == 1
+    assert _walk_n("bvh8t", early_exit) == 1
     tp, bp = intersect_tris_plain(ds, *args, early_exit)
     torch.cuda.synchronize()
     _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit)
@@ -116,15 +153,17 @@ def test_kernel_vs_plain(cuda_scene, early_exit):
 @pytest.mark.parametrize("early_exit", [False, True],
                          ids=["closest_hit", "any_hit"])
 @pytest.mark.parametrize("walk", list(WALKS))
-def test_walk_kernel_vs_plain(cuda_scene, walk, early_exit):
-    """K3-K6 on 16,384 random rays, bit for bit."""
+@pytest.mark.parametrize("rays", ["random", "path"])
+def test_walk_kernel_vs_plain(cuda_scene, path_batches, rays, walk,
+                              early_exit):
+    """K3-K6 on 16,384 random rays, and on the bunny frame's 250,000 camera
+    rays and their shadow rays, bit for bit."""
     ds = cuda_scene
     kernel, plain = WALKS[walk]
-    args = _rays(ds, 16384, 18, early_exit)
+    args = _batch(ds, path_batches, rays, 16384, 18, early_exit)
     reset_launch_counts()
     tk, bk = kernel(ds, *args, early_exit)
-    mode = "any_hit" if early_exit else "closest_hit"
-    assert kernel.launches[mode] == 1
+    assert _walk_n(walk, early_exit) == 1
     tp, bp = plain(ds, *args, early_exit)
     torch.cuda.synchronize()
     _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit,
@@ -188,8 +227,7 @@ def _exact_vs_plain(ds, walk, args, early_exit):
     kernel, plain = WALKS[walk]
     reset_launch_counts()
     tk, bk = kernel(ds, *args, early_exit)
-    mode = "any_hit" if early_exit else "closest_hit"
-    assert kernel.launches[mode] == 1
+    assert _walk_n(walk, early_exit) == 1
     tp, bp = plain(ds, *args, early_exit)
     torch.cuda.synchronize()
     _assert_agree(tk, bk, tp, bp, args[4].cpu().numpy(), early_exit,
@@ -221,7 +259,7 @@ def test_brute_bit_for_bit(brute_scenes, scene, n, early_exit):
 @pytest.mark.parametrize("scene", ["bunny", "metal", "repeated"])
 def test_brute_edge_rays(brute_scenes, scene, early_exit):
     """K3 on rays at its prefilter's edges (vertices, edges, just inside
-    and outside them, nearly parallel; chip_smoke.py::edge_rays), then on
+    and outside them, nearly parallel; torch_fixtures.py::edge_rays), then on
     the same rays with t_min or t_max at each hit's t; on the repeated
     triangles every hit is an equal-t tie."""
     ds = brute_scenes[scene]
@@ -270,8 +308,8 @@ def test_persistent_walk_bit_for_bit(cuda_scene, walk, n, early_exit):
 @pytest.mark.parametrize("walk", PERSISTENT)
 def test_persistent_walk_hard_rays(cuda_scene, walk, early_exit):
     """K4, K5 and K6 bit for bit on axis rays (zero direction components from
-    node box planes: NaN slabs; chip_smoke.py::axis_rays), then on the same
-    rays with t_min or t_max at each hit's t."""
+    node box planes: NaN slabs; torch_fixtures.py::axis_rays), then on the
+    same rays with t_min or t_max at each hit's t."""
     ds = cuda_scene
     args = [torch.from_numpy(x).to(ds.device)
             for x in axis_rays(ds, 16384, 61)]
@@ -319,14 +357,14 @@ def test_misaligned_table_raises(cuda_scene, walk):
 @pytest.mark.parametrize("early_exit", [False, True],
                          ids=["closest_hit", "any_hit"])
 def test_bvh8t_axis_rays(cuda_scene, early_exit):
-    """K1/K2 on axis rays (NaN slabs; chip_smoke.py::axis_rays), then on the
-    same rays with t_min or t_max at the hits' t where the kernel and the
+    """K1/K2 on axis rays (NaN slabs; torch_fixtures.py::axis_rays), then on
+    the same rays with t_min or t_max at the hits' t where the kernel and the
     plain walk agree bit for bit, against the plain walk (another tree) by
     the traversal contract: hit bits equal, winners equal but for ties (a
     different winner at t within rtol 1e-5, at most 2% of the live rays),
     t within rtol 1e-5; or fault F3, a hit in a box that one tree's box test
     culls and the brute-force plain version finds
-    (chip_smoke.py::compare_trees)."""
+    (torch_fixtures.py::compare_trees)."""
     ds = cuda_scene
     mode = "any_hit" if early_exit else "closest_hit"
     args = [torch.from_numpy(x).to(ds.device)
@@ -383,21 +421,76 @@ def test_kernel_other_widths(cuda_scene, width):
     np.testing.assert_allclose(tk[hit], tp[hit], rtol=1e-5)
 
 
-def test_render_on_card_matches_cpu(cuda_scene):
-    """A 64x64 bunny frame on cuda (through the kernel) and on cpu: frame
-    mean within 1% and rays_traced within 0.5% (chip_smoke.py phase 5
-    states why pixels agree only in distribution)."""
+@pytest.fixture
+def cpu_threads():
+    """Every CPU core for a test's cpu side, one thread again after it."""
+    torch.set_num_threads(os.cpu_count() or 1)
+    yield
+    torch.set_num_threads(1)
+
+
+def _block(scene, s, dev, start: int, n: int):
+    """(radiance (n, 3), rays_traced) of the n Morton-order pixels from
+    `start` of `scene` at settings s on `dev`."""
+    from tpu_raytracing_torch.integrator.render import (
+        StaticSettings, _pixel_grid, render_beauty_chunk,
+    )
+
+    cfg = SamplerConfig.from_settings(s.sampler, s.seed)
+    px, py, _ = _pixel_grid(scene.camera.raster_width,
+                            scene.camera.raster_height)
+    sel = slice(start, start + n)
+    r, rays = render_beauty_chunk(
+        compile_scene(scene, dev), cfg, StaticSettings.from_settings(s),
+        torch.from_numpy(px[sel].astype(np.int64)).to(dev),
+        torch.from_numpy(py[sel].astype(np.int64)).to(dev),
+        torch.ones(n, dtype=torch.bool, device=dev))
+    return r.cpu().numpy(), int(rays)
+
+
+def _share_close(g, c) -> float:
+    """The share of pixels whose every channel is within rtol 1e-3 (+1e-6)
+    of the cpu one."""
+    return float(np.all(np.abs(g - c) <= 1e-3 * np.abs(c) + 1e-6,
+                        axis=-1).mean())
+
+
+# the bench frame's 4,096-pixel Morton blocks (500x500, 2 spp, depth 8, one
+# light sample): offset and the least share of pixels within rtol 1e-3. Both
+# devices draw the same random numbers and trace the same camera rays bit
+# for bit; they differ in the last bits of sin, cos, exp and log1p, and the
+# card computes x / scalar as x * (1 / scalar). The coated BSDF's
+# evaluation hashes the bits of (wo, wi) into its random stream
+# (ops/layered.py), so once a bounce direction differs in a last bit, every
+# later coat evaluation draws another, equally valid estimate: on the bunny
+# the pixels agree in distribution only (measured on the H100: 99.29% of
+# wall pixels and 93.77% of the bunny block within rtol 1e-3)
+BUNNY_BLOCKS = {"walls_and_floor": (125000, 0.98), "bunny": (147456, 0.90)}
+
+
+@pytest.mark.parametrize("block", ["frame", *BUNNY_BLOCKS])
+def test_render_on_card_matches_cpu(cuda_scene, cpu_threads, block):
+    """A 64x64 bunny frame on cuda (through the kernel) and on cpu, and two
+    4,096-pixel blocks of the 500x500 frame, one of walls and floor and one
+    65% on the bunny: mean within 1%, rays_traced within 0.5%, and on the
+    blocks BUNNY_BLOCKS' share of pixels within rtol 1e-3."""
     scene = get_test_scene("coated_diffuse_bunny").scene_func()
-    scene.camera = scene.camera.with_resolution(64, 64)
     s = RaytracerSettings(samples_per_pixel=2, light_sample_count=1,
                           max_ray_depth=8)
     reset_launch_counts()
-    g = render(scene, s)
-    assert min(intersect_tris_bvh8t.launches.values()) > 0
-    c = render(scene, s, "cpu")
-    assert np.isfinite(g.beauty).all() and g.beauty.mean() > 0
-    assert abs(g.rays_traced - c.rays_traced) <= 0.005 * c.rays_traced
-    np.testing.assert_allclose(g.beauty.mean(), c.beauty.mean(), rtol=0.01)
+    if block == "frame":
+        scene.camera = scene.camera.with_resolution(64, 64)
+        g, c = render(scene, s), render(scene, s, "cpu")
+        (g, ng), (c, nc) = ((x.beauty, x.rays_traced) for x in (g, c))
+    else:
+        start, least = BUNNY_BLOCKS[block]
+        (g, ng), (c, nc) = (_block(scene, s, dev, start, 4096)
+                            for dev in ("cuda", "cpu"))
+        assert _share_close(g, c) >= least, _share_close(g, c)
+    assert min(_walk_n("bvh8t", ee) for ee in (False, True)) > 0
+    assert np.isfinite(g).all() and g.mean() > 0
+    assert abs(ng - nc) <= 0.005 * nc
+    np.testing.assert_allclose(g.mean(), c.mean(), rtol=0.01)
 
 
 @pytest.fixture(scope="module")
@@ -450,8 +543,7 @@ def test_intersect_scene_spheres_cuda_vs_cpu(metal_scenes, early_exit):
         t, p = intersect_scene(ds, *args[:4], early_exit=early_exit,
                                active=args[4])
         res[ds.device.type] = (t.cpu().numpy(), p.cpu().numpy())
-    mode = "any_hit" if early_exit else "closest_hit"
-    assert intersect_tris_bvh8t.launches[mode] == 1
+    assert _walk_n("bvh8t", early_exit) == 1
     (tg, pg), (tc, pc) = res["cuda"], res["cpu"]
     n_tris = gds.meta.n_tris
     if early_exit:
@@ -465,43 +557,62 @@ def test_intersect_scene_spheres_cuda_vs_cpu(metal_scenes, early_exit):
     assert 0.2 < (pg == n_tris).mean() < 0.8 and (pg[rays[4]] < n_tris).any()
 
 
-def test_dielectric_block_cuda_vs_cpu():
-    """A 256-pixel block on the glass sphere at 2 spp (the block of
-    tests/test_torch_render_materials.py), on cuda through the kernels and
-    on cpu: rays_traced within 0.5%, the mean within 1%, and at least 90% of
-    pixels within rtol 1e-3 (chip_smoke.py phase 7 states the share it
-    measures on its 1,024-pixel blocks)."""
-    from tpu_raytracing_torch.integrator.render import (
-        StaticSettings, _pixel_grid, render_beauty_chunk,
-    )
-    from tpu_raytracing_torch.ops.rng import SamplerConfig
+# blocks of builtin scenes at their builtin settings but the spp: scene ->
+# (the block's first pixel, pixels, spp, the least share within rtol 1e-3).
+# The sphere scenes' blocks lie on the sphere, where mirror and glass
+# bounces carry a last-bit difference from bounce to bounce (measured on
+# the H100: 100% on every 1,024-pixel block); the checkered plane's in the
+# near half, where a cell covers many pixels; environment_light's across
+# the cube's silhouette against the sky (no light, so no shadow ray); the
+# emissive box's (RaytracerSettings' defaults) on the ceiling at the quad's
+# edge.
+SCENE_BLOCKS = {
+    "dielectric_256": ("dielectric", (192, 288), 256, 2, 0.90),
+    "out_of_focus_sphere": ("out_of_focus_sphere", (160, 224), 1024, 2,
+                            0.99),
+    "dielectric": ("dielectric", (192, 288), 1024, 2, 0.98),
+    "metal": ("metal", (192, 288), 1024, 2, 0.98),
+    "rough_metal": ("rough_metal", (192, 288), 1024, 2, 0.98),
+    "rough_dielectric": ("rough_dielectric", (192, 288), 1024, 2, 0.98),
+    "checkered_plane": ("checkered_plane", (224, 224), 1024, 1, 0.98),
+    "environment_light": ("environment_light", (256, 224), 1024, 2, 0.98),
+    "emissive_box": ("emissive_box", (192, 96), 1024, 2, 0.98),
+}
+
+
+@pytest.mark.parametrize("case", list(SCENE_BLOCKS))
+def test_dielectric_block_cuda_vs_cpu(cpu_threads, case):
+    """A block of a builtin scene (SCENE_BLOCKS; first the 256-pixel block
+    on the glass sphere of tests/test_torch_render_materials.py), on cuda
+    through the kernels and on cpu: rays_traced within 0.5%, the mean
+    within 1% per channel, and the case's share of pixels within rtol 1e-3.
+    The walk launches where the scene has triangles, its any-hit mode
+    where it has a light too."""
+    from tpu_raytracing_torch.integrator.render import _pixel_grid
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the walk is a CUDA kernel")
-    ts = get_test_scene("dielectric")
-    scene = ts.scene_func()
-    s = dataclasses.replace(ts.settings_func(), samples_per_pixel=2)
-    cfg = SamplerConfig.from_settings(s.sampler, s.seed)
-    st = StaticSettings.from_settings(s)
-    px, py, _ = _pixel_grid(500, 500)
-    start = int(np.nonzero((px == 192) & (py == 288))[0][0])
-    sel = slice(start, start + 256)
-    res = {}
+    name, (x0, y0), n, spp, least = SCENE_BLOCKS[case]
+    if name == "emissive_box":
+        scene, s = emissive_box(), RaytracerSettings()
+    else:
+        ts = get_test_scene(name)
+        scene, s = ts.scene_func(), ts.settings_func()
+    s = dataclasses.replace(s, samples_per_pixel=spp)
+    px, py, _ = _pixel_grid(scene.camera.raster_width,
+                            scene.camera.raster_height)
+    start = int(np.nonzero((px == x0) & (py == y0))[0][0])
     reset_launch_counts()
-    for dev in ("cuda", "cpu"):
-        r, n = render_beauty_chunk(
-            compile_scene(scene, dev), cfg, st,
-            torch.from_numpy(px[sel].astype(np.int64)).to(dev),
-            torch.from_numpy(py[sel].astype(np.int64)).to(dev),
-            torch.ones(256, dtype=torch.bool, device=dev))
-        res[dev] = (r.cpu().numpy(), int(n))
-    assert min(intersect_tris_bvh8t.launches.values()) > 0
-    (g, ng), (c, nc) = res["cuda"], res["cpu"]
+    (g, ng), (c, nc) = (_block(scene, s, dev, start, n)
+                        for dev in ("cuda", "cpu"))
+    walked = name != "out_of_focus_sphere"  # a lone sphere: no triangle
+    assert (_walk_n("bvh8t", False) > 0) == walked
+    assert (_walk_n("bvh8t", True) > 0) == (
+        walked and name != "environment_light")
     assert np.isfinite(g).all() and c.mean() > 0
     assert abs(ng - nc) <= 0.005 * nc
     np.testing.assert_allclose(g.mean(axis=0), c.mean(axis=0), rtol=0.01)
-    close = np.all(np.abs(g - c) <= 1e-3 * np.abs(c) + 1e-6, axis=-1)
-    assert close.mean() >= 0.90, close.mean()
+    assert _share_close(g, c) >= least, _share_close(g, c)
 
 
 def _needs_card():
@@ -589,7 +700,7 @@ def test_area_light_shadow_rays_kernel_vs_plain():
             (ls.distance - 1e-3).contiguous(), outside | (prim >= 0))
     reset_launch_counts()
     tk, bk = intersect_tris_bvh8t(ds, *args, early_exit=True)
-    assert intersect_tris_bvh8t.launches["any_hit"] == 1
+    assert _walk_n("bvh8t", True) == 1
     tp, bp = intersect_tris_plain(ds, *args, early_exit=True)
     hit_k, hit_p = (bk >= 0).cpu().numpy(), (bp >= 0).cpu().numpy()
     np.testing.assert_array_equal(hit_k, hit_p)
@@ -611,8 +722,8 @@ def test_environment_light_never_launches_any_hit():
     s = dataclasses.replace(ts.settings_func(), samples_per_pixel=2)
     reset_launch_counts()
     g = render(scene, s)
-    assert intersect_tris_bvh8t.launches["closest_hit"] > 0
-    assert intersect_tris_bvh8t.launches["any_hit"] == 0
+    assert _walk_n("bvh8t", False) > 0
+    assert _walk_n("bvh8t", True) == 0
     c = render(scene, s, "cpu")
     assert np.isfinite(g.beauty).all() and g.beauty.mean() > 0
     assert abs(g.rays_traced - c.rays_traced) <= 0.005 * c.rays_traced
@@ -621,7 +732,7 @@ def test_environment_light_never_launches_any_hit():
 
 @pytest.fixture(scope="module")
 def bunnies(tmp_path_factory):
-    """chip_smoke.py's glTF scenes: four bunnies over one BLAS, and the
+    """torch_fixtures.py's glTF scenes: four bunnies over one BLAS, and the
     same scene with every bunny baked world-space, at 96x96."""
     from tpu_raytracing_torch.scene import scene_from_file
 
@@ -669,8 +780,7 @@ def test_kernels_on_a_blas_vs_plain(bunnies, walk, early_exit):
     args = _blas_rays(blas, 16384, 19, early_exit)
     reset_launch_counts()
     tk, bk = kernel(blas, *args, early_exit)
-    mode = "any_hit" if early_exit else "closest_hit"
-    assert kernel.launches[mode] == 1
+    assert _walk_n(walk, early_exit) == 1
     tp, bp = plain(blas, *args, early_exit)
     torch.cuda.synchronize()
     assert (bp >= 0).sum() > 1000
@@ -689,7 +799,8 @@ def test_instanced_frame_matches_baked(bunnies):
     for instanced, scene in bunnies.items():
         reset_launch_counts()
         imgs[instanced] = render(scene, s).beauty
-        n = dict(intersect_tris_bvh8t.launches)
+        n = {"closest_hit": _walk_n("bvh8t", False),
+             "any_hit": _walk_n("bvh8t", True)}
         per = 5 if instanced else 1
         assert n["closest_hit"] % per == 0 and n["closest_hit"] > 0
         assert n["any_hit"] == n["closest_hit"], n
@@ -699,8 +810,8 @@ def test_instanced_frame_matches_baked(bunnies):
 
 
 # the probes: the plain versions run op by op, so they are compared at a
-# small count, one of fori's compiled trip counts (chip_smoke.py compares
-# them at the scripts' counts)
+# small count, one of fori's compiled trip counts (the probes' mains time
+# the kernels at the scripts' counts)
 PROBE_ITERS = 256
 
 
@@ -718,9 +829,9 @@ def test_iter_cost_kernel_vs_plain(card, config, small_ids):
     ins = P3.script_inputs("cuda", small_ids)
     ck, cp = (torch.zeros(1, dtype=torch.int32, device="cuda")
               for _ in range(2))
-    reset_probes()
+    reset_launch_counts()
     got = P3.iter_cost(*ins, *config, PROBE_ITERS, counts=ck)
-    assert P3.iter_cost.launches[P3.label(config)] == 1
+    assert _n(("tpu_rt_probe_iter_cost", P3.label(config))) == 1
     want = P3.iter_cost_plain(*ins, *config, PROBE_ITERS, counts=cp)
     torch.cuda.synchronize()
     assert torch.isfinite(want).any() and not torch.isfinite(want).all()
@@ -732,9 +843,9 @@ def test_iter_cost_kernel_vs_plain(card, config, small_ids):
 def test_bf16_vpu_kernel_vs_plain(card, dtype):
     """P4 bit for bit in both types."""
     box, ray = P4.script_inputs("cuda")[dtype]
-    reset_probes()
+    reset_launch_counts()
     got = P4.bf16_vpu(box, ray, PROBE_ITERS)
-    assert P4.bf16_vpu.launches[dtype] == 1
+    assert _n(("tpu_rt_probe_bf16_vpu", dtype)) == 1
     want = P4.bf16_vpu_plain(box, ray, PROBE_ITERS)
     torch.cuda.synchronize()
     assert torch.isfinite(want).all()
@@ -790,11 +901,11 @@ def _record_equal(run_kernel, run_plain, n: int = PROBE_ITERS):
 def test_slab_cost_kernel_vs_plain(card, variant, inputs):
     """P2 bit for bit, visit by visit."""
     ins = _inputs(P2, inputs)
-    reset_probes()
+    reset_launch_counts()
     _, seq = _record_equal(
         lambda v: P2.slab_cost(*ins, variant, PROBE_ITERS, visits=v),
         lambda v: P2.slab_cost_plain(*ins, variant, PROBE_ITERS, visits=v))
-    assert P2.slab_cost.launches[variant] == 1
+    assert _n(("tpu_rt_probe_slab_cost", variant)) == 1
     if inputs == "varied":
         assert len(set(seq.tolist())) > 1
 
@@ -810,12 +921,12 @@ def test_slab_cost_wraps_the_table(card, variant, inputs):
     """P2 bit for bit, visit by visit, at a count that wraps the node table
     and refills every ring stage: the blocks stream in the walk's order."""
     ins = _inputs(P2, inputs)
-    reset_probes()
+    reset_launch_counts()
     _, seq = _record_equal(
         lambda v: P2.slab_cost(*ins, variant, P2_WRAP_ITERS, visits=v),
         lambda v: P2.slab_cost_plain(*ins, variant, P2_WRAP_ITERS, visits=v),
         P2_WRAP_ITERS)
-    assert P2.slab_cost.launches[variant] == 1
+    assert _n(("tpu_rt_probe_slab_cost", variant)) == 1
     q = sum(1 + (int(m) & 1) for m in seq[:-1])
     assert q >= P2.NODES  # the last visit's node lies past the wrap
 
@@ -825,11 +936,11 @@ def test_slab_cost_wraps_the_table(card, variant, inputs):
 def test_walk_cost_kernel_vs_plain(card, level, inputs):
     """P1 bit for bit, visit by visit; the leaf levels find hits."""
     ins = _inputs(P1, inputs)
-    reset_probes()
+    reset_launch_counts()
     want, seq = _record_equal(
         lambda v: P1.walk_cost(*ins, level, PROBE_ITERS, visits=v),
         lambda v: P1.walk_cost_plain(*ins, level, PROBE_ITERS, visits=v))
-    assert P1.walk_cost.launches[level] == 1
+    assert _n(("tpu_rt_probe_walk_cost", level)) == 1
     assert len(seq) == PROBE_ITERS and len(set(seq.tolist())) > 1
     fin = torch.isfinite(want)
     assert bool(fin.any()) == level.endswith("50")
@@ -980,13 +1091,13 @@ def test_coat_repeats_bit_for_bit(card):
 def test_coat_empty_call_launches_nothing(card):
     params, wo, wi, draw_base = _coat_lanes(8, 3)
     none = TB.BsdfParams(*(x[:0] for x in params))
-    launched = (L.layered_eval.launches, L.layered_sample.launches)
+    launched = (_n(COAT["eval"]), _n(COAT["sample"]))
     f = L.layered_eval(none, wo[:0], wi[:0])
     s = L.layered_sample(none, wo[:0], draw_base[:0])
     assert f.shape == (0, 3) and s.wi.shape == (0, 3) and s.valid.shape == (0,)
-    assert (L.layered_eval.launches, L.layered_sample.launches) == launched
+    assert (_n(COAT["eval"]), _n(COAT["sample"])) == launched
     L.layered_eval(params, wo, wi)
-    assert L.layered_eval.launches == launched[0] + 1
+    assert _n(COAT["eval"]) == launched[0] + 1
 
 
 def test_coat_rejects_what_the_kernel_does_not_take(card):
@@ -1014,9 +1125,9 @@ def test_coat_frame_with_plain_twin_bit_for_bit(card, monkeypatch):
     scene.camera = scene.camera.with_resolution(48, 40)
     s = RaytracerSettings(samples_per_pixel=2, light_sample_count=4,
                           max_ray_depth=8)
-    launched = L.layered_eval.launches
+    launched = _n(COAT["eval"])
     a = render_accumulated(scene, s, spp_chunk=1)
-    assert L.layered_eval.launches > launched
+    assert _n(COAT["eval"]) > launched
     monkeypatch.setattr(D, "layered_eval", L.layered_eval_plain)
     monkeypatch.setattr(D, "layered_sample", L.layered_sample_plain)
     b = render_accumulated(scene, s, spp_chunk=1)
@@ -1048,25 +1159,56 @@ def _shade_sample_same(params, wo, stream, kinds=SHADE_KINDS,
     return _same_bits((*got, *gs), (*want, *ws))
 
 
-@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4, "mixed"])
-def test_shade_sample_kernel_vs_plain(card, kind):
-    kinds = SHADE_KINDS if kind == "mixed" else (kind,)
-    params, wo, _, stream = _shade_lanes(16385, 7, kinds)
-    launched = D.bsdf_sample.launches
-    assert _shade_sample_same(params, wo, stream)
-    assert D.bsdf_sample.launches == launched + 1
+@pytest.fixture(scope="module")
+def rough_pass(card):
+    """Every BSDF dispatch call of one 1-spp 500x500 rough_dielectric pass
+    (COAT_SETTINGS: the benchmark's lane counts), its inputs as the
+    integrator hands them over."""
+    scene = get_test_scene("rough_dielectric").scene_func()
+    return shade_calls(scene, RaytracerSettings(**COAT_SETTINGS))
 
 
-@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4, "mixed"])
-def test_shade_eval_kernel_vs_plain(card, kind):
-    kinds = SHADE_KINDS if kind == "mixed" else (kind,)
-    params, wo, wi, _ = _shade_lanes(16385, 8, kinds)
-    launched = D.bsdf_eval.launches
-    got = D.bsdf_eval(params, wo, wi, SHADE_KINDS)
-    assert _same_bits(got, D.bsdf_eval_plain(params, wo, wi, SHADE_KINDS))
-    assert D.bsdf_eval.launches == launched + 1
-    if kind in (1, 2):  # delta BSDFs evaluate to zero
-        assert not bool(got.any())
+def _pass_calls(rough_pass, kind: str) -> list:
+    calls = [c[1:] for c in rough_pass if c[0] == kind]
+    assert calls
+    return calls
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4, "mixed", "pass"])
+def test_shade_sample_kernel_vs_plain(rough_pass, kind):
+    """Seeded lanes of one kind or of all, and every sample call of one
+    rough_dielectric pass; a launch a call."""
+    if kind == "pass":
+        calls = _pass_calls(rough_pass, "sample")
+    else:
+        kinds = SHADE_KINDS if kind == "mixed" else (kind,)
+        params, wo, _, stream = _shade_lanes(16385, 7, kinds)
+        calls = [(params, wo, TB.ALL_COMPONENTS, SHADE_CFG, stream,
+                  SHADE_KINDS, None)]
+    launched = _n(SHADE["sample"])
+    for args in calls:
+        got, gs = D.bsdf_sample(*args)
+        want, ws = D.bsdf_sample_plain(*args)
+        assert _same_bits((*got, *gs), (*want, *ws)), args[1].shape[0]
+    assert _n(SHADE["sample"]) == launched + len(calls)
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4, "mixed", "pass"])
+def test_shade_eval_kernel_vs_plain(rough_pass, kind):
+    """As the sample test, for the eval calls."""
+    if kind == "pass":
+        calls = _pass_calls(rough_pass, "eval")
+    else:
+        kinds = SHADE_KINDS if kind == "mixed" else (kind,)
+        params, wo, wi, _ = _shade_lanes(16385, 8, kinds)
+        calls = [(params, wo, wi, SHADE_KINDS, None)]
+    launched = _n(SHADE["eval"])
+    for args in calls:
+        got = D.bsdf_eval(*args)
+        assert _same_bits(got, D.bsdf_eval_plain(*args)), args[1].shape[0]
+        if kind in (1, 2):  # delta BSDFs evaluate to zero
+            assert not bool(got.any())
+    assert _n(SHADE["eval"]) == launched + len(calls)
 
 
 def test_shade_edge_directions(card):
@@ -1091,9 +1233,9 @@ def test_shade_coated_lanes_and_active(card):
     paths)."""
     params, wo, wi, stream = _shade_lanes(8193, 10)
     act = torch.from_numpy(np.random.default_rng(10).random(8193) < 0.5).cuda()
-    launched = L.layered_sample.launches
+    launched = _n(COAT["sample"])
     assert _shade_sample_same(params, wo, stream, active=act)
-    assert L.layered_sample.launches == launched + 2
+    assert _n(COAT["sample"]) == launched + 2
     assert _same_bits(D.bsdf_eval(params, wo, wi, SHADE_KINDS, act),
                       D.bsdf_eval_plain(params, wo, wi, SHADE_KINDS, act))
 
@@ -1115,12 +1257,12 @@ def test_shade_empty_call_launches_nothing(card):
     params, wo, wi, stream = _shade_lanes(8, 12)
     none = TB.BsdfParams(*(x[:0] for x in params))
     s0 = type(stream)(*(x[:0] for x in stream))
-    launched = (D.bsdf_eval.launches, D.bsdf_sample.launches)
+    launched = (_n(SHADE["eval"]), _n(SHADE["sample"]))
     f = D.bsdf_eval(none, wo[:0], wi[:0], SHADE_KINDS)
     s, st = D.bsdf_sample(none, wo[:0], TB.ALL_COMPONENTS, SHADE_CFG, s0,
                           SHADE_KINDS)
     assert f.shape == (0, 3) and s.wi.shape == (0, 3) and s.valid.shape == (0,)
-    assert (D.bsdf_eval.launches, D.bsdf_sample.launches) == launched
+    assert (_n(SHADE["eval"]), _n(SHADE["sample"])) == launched
 
 
 def test_shade_rejects_what_the_kernel_does_not_take(card):
@@ -1151,10 +1293,10 @@ def test_shade_frame_with_plain_twins_bit_for_bit(card, monkeypatch, name):
     scene.camera = scene.camera.with_resolution(48, 40)
     s = RaytracerSettings(samples_per_pixel=2, light_sample_count=4,
                           max_ray_depth=8)
-    launched = (D.bsdf_eval.launches, D.bsdf_sample.launches)
+    launched = (_n(SHADE["eval"]), _n(SHADE["sample"]))
     a = render_accumulated(scene, s, spp_chunk=1)
-    assert D.bsdf_eval.launches > launched[0]
-    assert D.bsdf_sample.launches > launched[1]
+    assert _n(SHADE["eval"]) > launched[0]
+    assert _n(SHADE["sample"]) > launched[1]
     monkeypatch.setattr(R, "bsdf_eval", D.bsdf_eval_plain)
     monkeypatch.setattr(R, "bsdf_sample", D.bsdf_sample_plain)
     b = render_accumulated(scene, s, spp_chunk=1)

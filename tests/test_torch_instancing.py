@@ -4,7 +4,7 @@ virtual-triangle decode of the port against the JAX package.
 Two scenes, each built by both packages: the two-grid scene of
 tests/test_instancing.py (one 32-triangle mesh under two transforms, as
 TransformPrimitives over one BasicPrimitive), and a glTF file written with
-chip_smoke.py::write_glb (the same mesh named by two nodes, beside a
+torch_fixtures.py::write_glb (the same mesh named by two nodes, beside a
 two-triangle floor named by two nodes too, which stays baked world-space
 since it is under INSTANCE_MIN_TRIS), loaded by each package's loader.
 
@@ -43,7 +43,7 @@ from tpu_raytracing_torch.ops.traverse import (
 from tpu_raytracing_torch.scene.loaders import scene_from_file
 from tpu_raytracing_torch.settings import AovFlags, RaytracerSettings
 
-from chip_smoke import write_glb
+from torch_fixtures import write_glb
 
 torch.set_num_threads(1)
 

@@ -25,7 +25,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_raytracing_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_fixtures.py"]
 FORBIDDEN = ("jax", "tpu_raytracing", "scripts", "visual_testing")
 CUDA_SOURCES = sorted((ROOT / "tpu_raytracing_torch" / "csrc").glob("*.cu*"))
 

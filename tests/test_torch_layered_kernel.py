@@ -68,7 +68,7 @@ def test_cpu_tensors_run_the_plain_twin(kind, monkeypatch):
 
     monkeypatch.setattr(native_cuda, "load", refuse)
     params, wo, wi, draw_base = _lanes(64, 0)
-    launched = (L.layered_eval.launches, L.layered_sample.launches)
+    launched = native_cuda.launch_counts()
     tracing.reset()
     tracing.enable()
     try:
@@ -82,7 +82,7 @@ def test_cpu_tensors_run_the_plain_twin(kind, monkeypatch):
         tracing.disable()
     for a, b in zip(got, want, strict=True):
         assert torch.equal(a, b)
-    assert (L.layered_eval.launches, L.layered_sample.launches) == launched
+    assert native_cuda.launch_counts() == launched
     assert "coat.kernel_lanes" not in tracing.snapshot()
 
 

@@ -6,8 +6,8 @@ one process a rank, on a file:// store in tmp_path (no TCP port, so xdist
 workers cannot collide), with a 120 s timeout; each rank writes what it
 got to an .npz. The frame is JAX's 37x27 checkered_plane of
 tests/test_parallel.py::_tiny_frame_scene (999 pixels, so 2, 4 and 8 tiles
-pad dead lanes), 2 spp, depth 2, one light sample: chip_smoke.py's
-`tiny_frame`, which its multi-gpu phase renders on the card.
+pad dead lanes), 2 spp, depth 2, one light sample: torch_fixtures.py's
+`tiny_frame`, which chip_smoke.py's multi-gpu phase renders on the card.
 
 Tolerances. Against the port on one device everything is bit for bit
 (np.array_equal) and rays_traced equal: the spp axis is folded in a fixed
@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import tiny_frame
+from torch_fixtures import tiny_frame
 
 ROOT = Path(__file__).resolve().parent.parent
 TIMEOUT = 120

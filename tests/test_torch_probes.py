@@ -29,11 +29,13 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from tpu_raytracing_torch.native_cuda import (
+    launch_counts, reset_launch_counts,
+)
 from tpu_raytracing_torch.ops.intersect import prefilter_rejects
 from tpu_raytracing_torch.probes import bf16_vpu as P4
 from tpu_raytracing_torch.probes import common
 from tpu_raytracing_torch.probes import iter_cost as P3
-from tpu_raytracing_torch.probes import reset_launch_counts
 
 torch.set_num_threads(1)
 
@@ -187,8 +189,7 @@ def test_wrappers_run_plain_on_cpu():
                        P3.iter_cost_plain(*ins, *config, 8))
     box, ray = P4.script_inputs()["bfloat16"]
     assert torch.equal(P4.bf16_vpu(box, ray, 8), P4.bf16_vpu_plain(box, ray, 8))
-    assert not any(P3.iter_cost.launches.values())
-    assert not any(P4.bf16_vpu.launches.values())
+    assert not launch_counts()
 
 
 @pytest.mark.parametrize("inputs", ["script", "small_ids"])

@@ -37,8 +37,10 @@ import torch
 from jax.experimental import pallas as pl
 
 from tpu_raytracing.ops.traverse_pallas import _ffs
+from tpu_raytracing_torch.native_cuda import (
+    launch_counts, reset_launch_counts,
+)
 from tpu_raytracing_torch.probes import common
-from tpu_raytracing_torch.probes import reset_launch_counts
 from tpu_raytracing_torch.probes import slab_cost as P2
 from tpu_raytracing_torch.probes import walk_cost as P1
 
@@ -226,8 +228,7 @@ def test_wrappers_run_plain_on_cpu():
     for a, b in zip(P1.walk_cost(*ins, "cond50", 8),
                     P1.walk_cost_plain(*ins, "cond50", 8)):
         assert torch.equal(a, b)
-    assert not any(P2.slab_cost.launches.values())
-    assert not any(P1.walk_cost.launches.values())
+    assert not launch_counts()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

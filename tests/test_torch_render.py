@@ -35,9 +35,8 @@ from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.integrator.render import (
     StaticSettings, _pixel_grid, render, render_beauty_chunk,
 )
+from tpu_raytracing_torch.native_cuda import launch_counts, reset_launch_counts
 from tpu_raytracing_torch.ops.rng import SamplerConfig
-from tpu_raytracing_torch.ops.traverse_bvh8t import intersect_tris_bvh8t
-from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import AovFlags, RaytracerSettings
 
@@ -116,7 +115,7 @@ def test_render_cpu_never_launches():
     reset_launch_counts()
     out = render(_small_bunny(4, 4), SETTINGS, "cpu")
     assert np.isfinite(out.beauty).all()
-    assert intersect_tris_bvh8t.launches == {"closest_hit": 0, "any_hit": 0}
+    assert not launch_counts()
 
 
 def test_render_rejects_outside_slice(scene):

@@ -11,7 +11,7 @@ settings, spp cut to 2 where the builtin is higher:
 - environment_light (500x500, 2 spp, depth 8), at (272, 240) across the
   cube's right silhouette against the sky: the sky lights the cube and is
   seen past it;
-- the emissive Cornell box (chip_smoke.py's, at 64x64, 2 spp, 4 light
+- the emissive Cornell box (torch_fixtures.py's, at 64x64, 2 spp, 4 light
   samples): at (16, 16), the ceiling around the quad's left edge.
 
 Tolerance. As in the sphere scenes: the mean within 1% per channel,

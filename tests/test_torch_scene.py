@@ -19,7 +19,7 @@ from tpu_raytracing_torch.device import compile_scene, from_jax_leaves
 from tpu_raytracing_torch.device.scene_buffers import LEAF_NAMES, SceneMeta
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
-from chip_smoke import emissive_box, textured_cubes
+from torch_fixtures import emissive_box, textured_cubes
 
 torch.set_num_threads(1)
 
@@ -110,7 +110,7 @@ def test_triangle_rows_pad_with_zeros(both, table):
 def _outside_scene(case, tmod, mmod, geom):
     """A scene beyond the builtin set, built from one package's own modules
     (scene.test_scenes, materials, geometry): the cube with an image or a
-    mix texture for albedo; chip_smoke.py's emissive Cornell box (an area
+    mix texture for albedo; torch_fixtures.py's emissive Cornell box (an area
     light beside the point light) and textured cubes, at 64x64; or the
     Cornell box with an emissive sphere (`sphere_emitter`: outside the
     port) or an instanced mesh (`instanced_mesh`)."""

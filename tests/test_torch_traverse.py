@@ -21,13 +21,13 @@ from tpu_raytracing.ops.traverse_pallas import intersect_tris_pallas
 from tpu_raytracing.scene.test_scenes import get_test_scene as jax_test_scene
 from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.device import scene_buffers as SB
+from tpu_raytracing_torch.native_cuda import launch_counts, reset_launch_counts
 from tpu_raytracing_torch.ops.traverse import (
     hit_details, intersect_scene, occluded,
 )
 from tpu_raytracing_torch.ops.traverse_bvh8t import (
     intersect_tris_bvh8t, intersect_tris_plain,
 )
-from tpu_raytracing_torch.ops.traverse_kernels import reset_launch_counts
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 
 torch.set_num_threads(1)
@@ -168,7 +168,7 @@ def test_cpu_tensors_take_the_plain_walk(scenes):
     want = intersect_tris_plain(tds, *args)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert intersect_tris_bvh8t.launches == {"closest_hit": 0, "any_hit": 0}
+    assert not launch_counts()
 
 
 def test_other_devices_raise(scenes):

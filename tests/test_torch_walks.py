@@ -23,13 +23,14 @@ from tpu_raytracing_torch.device import compile_scene
 from tpu_raytracing_torch.integrator.render import (
     StaticSettings, _pixel_grid, render_beauty_chunk,
 )
+from tpu_raytracing_torch.native_cuda import launch_counts, reset_launch_counts
 from tpu_raytracing_torch.ops import traverse_bvh8t as T8
 from tpu_raytracing_torch.ops import traverse_kernels as TK
 from tpu_raytracing_torch.ops.rng import SamplerConfig
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
-from chip_smoke import at_t_limits, axis_rays
+from torch_fixtures import at_t_limits, axis_rays
 
 torch.set_num_threads(1)
 
@@ -114,12 +115,12 @@ def test_plain_vs_pallas_kernel(scenes, monkeypatch, walk, early_exit):
 def _hard_rays(jds, tds, walk, kind):
     """The ray sets where a walk is most likely to slip, as numpy (o, d,
     t_min, t_max, active). "at_t_limits": _query's rays with t_min or t_max
-    at their closest hit's t (chip_smoke.py::at_t_limits: a third t_min = t,
-    a third t_max = t, a third t_max one float below), on the lanes where
+    at their closest hit's t (torch_fixtures.py::at_t_limits: a third t_min
+    = t, a third t_max = t, a third t_max one float below), on the lanes where
     the Pallas kernel and the plain version find the same triangle at the
     same t bits (XLA contracts multiply-adds, so on the others the two t
     differ in the last bits and a limit at one is not at the other).
-    "axis": chip_smoke.py::axis_rays, zero direction components from a
+    "axis": torch_fixtures.py::axis_rays, zero direction components from a
     node box's plane (the NaN slab)."""
     if kind == "axis":
         return axis_rays(tds, 1024, 42)
@@ -232,7 +233,7 @@ def test_f3_nan_slab_culls_grazing_hits(scenes, monkeypatch):
     """Fault F3 (ROADMAP section 3), cause (a): a ray that lies in the plane
     of a box face, across which its direction is zero, meets 0 * inf = NaN
     in the slab test, and the walk culls the box. On the cube every axis
-    ray (chip_smoke.py::axis_rays) lies in the plane of a face of the root
+    ray (torch_fixtures.py::axis_rays) lies in the plane of a face of the root
     box and grazes the triangles of the faces across that plane at an edge:
     the brute force, which culls nothing, finds those hits (the port's and
     the JAX package's alike), and the plain stack walk, which keeps the NaN
@@ -287,8 +288,9 @@ def test_f3_box_entry_culls_a_hit_at_t_max(scenes, monkeypatch, walk):
 
 
 # three of the bench frame's camera rays (coated_diffuse_bunny, 500x500,
-# 8 spp) on which chip_smoke.py phase 12 finds the bvh8t walk and the brute
-# force apart: the pinhole at (0, 4.4, 0.4), t in [0.01, 1000]
+# 8 spp) on which a replay of the frame's batches on the card found the
+# bvh8t walk and the brute force apart: the pinhole at (0, 4.4, 0.4), t in
+# [0.01, 1000]
 F3_CAMERA_DIRS = (
     (0.24134749174118042, -0.9233184456825256, 0.2987213432788849),
     (-0.1646970510482788, -0.9384512901306152, 0.30361825227737427),
@@ -370,14 +372,14 @@ def test_switch_runs_that_plain_version(scenes, monkeypatch, env, walk):
         return real(*a, **k)
 
     monkeypatch.setattr(owner, attr, spy)
-    TK.reset_launch_counts()
+    reset_launch_counts()
     o, d, tmin, tmax, act = _query(tds, 64, 32, False)
     t, b = TK.intersect_tris(tds, *[torch.from_numpy(x)
                                     for x in (o, d, tmin, tmax, act)])
     assert len(calls) == 1
     assert calls[0] == (walk == "quadrow")
     assert b.shape == (64,) and t.dtype == torch.float32
-    assert all(v == 0 for w in TK.WALKS.values() for v in w.launches.values())
+    assert not launch_counts()
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,9 @@ and takes seconds.
 There is no fallback: a missing nvcc or a failed build raises. What every
 kernel wrapper shares is here too: the device rule (`on_card`), the
 check of a tensor the kernel reads (`check_tensor`) and the launch of a C
-entry on the current stream (`launch`), which raises on a refused launch.
+entry on the current stream (`launch`), which raises on a refused launch
+and counts every launch the card takes (`launch_counts`,
+`reset_launch_counts`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -175,10 +178,25 @@ def check_tensor(name: str, x: torch.Tensor, shape, dtype, device):
     return x.contiguous()
 
 
-def launch(entry: str, device, *args) -> None:
+_LAUNCHES: Counter = Counter()
+
+
+def launch(entry: str, device, *args, tag: str = "") -> None:
     """Call the C entry `entry` with `args` and the current stream of
-    `device`; a launch the card refuses raises."""
+    `device`; a launch the card refuses raises, and each launch it takes
+    adds one to the count of (entry, tag). `tag` tells apart what one entry
+    launches: a walk and its mode, a probe's configuration."""
     rc = getattr(load(), entry)(*args,
                                 torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    _LAUNCHES[entry, tag] += 1
+
+
+def launch_counts() -> dict[tuple[str, str], int]:
+    """(entry, tag) -> the launches since the last reset_launch_counts()."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.clear()

@@ -71,9 +71,9 @@ def bsdf_eval(params: B.BsdfParams, wo, wi, kinds: Tuple[int, ...],
 
     active (optional bool mask): the lanes whose result is consumed; the
     layered walk skips coated lanes outside it, which return zero. CUDA
-    tensors launch the kernel for the other kinds (adding one to
-    `bsdf_eval.launches` and the lanes to the traced counter
-    `shade.kernel_lanes`); CPU tensors run `bsdf_eval_plain`."""
+    tensors launch the kernel for the other kinds (adding the lanes to the
+    traced counter `shade.kernel_lanes`); CPU tensors run
+    `bsdf_eval_plain`."""
     if not native_cuda.on_card("bsdf_eval", wo):
         return bsdf_eval_plain(params, wo, wi, kinds, active)
     kinds = _rough_kinds(kinds)
@@ -163,10 +163,10 @@ def bsdf_sample(
 
     active (optional bool mask): the lanes whose sample is consumed; the
     layered walk skips coated lanes outside it, which return a null
-    sample. CUDA tensors launch the kernel for the other kinds (adding one
-    to `bsdf_sample.launches` and the lanes to `shade.kernel_lanes`),
-    which samples every component and so takes only the int
-    ALL_COMPONENTS as `allowed`; CPU tensors run `bsdf_sample_plain`."""
+    sample. CUDA tensors launch the kernel for the other kinds (adding the
+    lanes to `shade.kernel_lanes`), which samples every component and so
+    takes only the int ALL_COMPONENTS as `allowed`; CPU tensors run
+    `bsdf_sample_plain`."""
     if not native_cuda.on_card("bsdf_sample", wo):
         return bsdf_sample_plain(params, wo, allowed, cfg, stream, kinds,
                                  active)
@@ -274,7 +274,6 @@ def _eval_kernel(params: B.BsdfParams, wo, wi, kinds) -> torch.Tensor:
         native_cuda.launch("tpu_rt_bsdf_eval", wo.device,
                            *(x.data_ptr() for x in (*args, f)),
                            _kinds_mask(kinds), n)
-        bsdf_eval.launches += 1
         tracing.count("shade.kernel_lanes", n)
     return f
 
@@ -303,10 +302,5 @@ def _sample_kernel(params: B.BsdfParams, wo, u2, u1, allowed,
         native_cuda.launch("tpu_rt_bsdf_sample", dev,
                            *(x.data_ptr() for x in (*args, *out)),
                            _kinds_mask(kinds), n)
-        bsdf_sample.launches += 1
         tracing.count("shade.kernel_lanes", n)
     return out
-
-
-bsdf_eval.launches = 0
-bsdf_sample.launches = 0

@@ -467,9 +467,8 @@ def _launch(entry: str, args: list, outs, steps) -> None:
 def layered_eval(params: B.BsdfParams, wo, wi):
     """Stochastic estimate of the layered BSDF value, (n, 3).
 
-    CUDA tensors launch the kernel (adding one to `layered_eval.launches`
-    and n to the traced counter `coat.kernel_lanes`); CPU tensors run
-    `layered_eval_plain`."""
+    CUDA tensors launch the kernel (adding n to the traced counter
+    `coat.kernel_lanes`); CPU tensors run `layered_eval_plain`."""
     if not native_cuda.on_card("layered_eval", wo):
         return layered_eval_plain(params, wo, wi)
     return _eval_kernel(params, wo, wi)
@@ -479,9 +478,8 @@ def layered_sample(params: B.BsdfParams, wo, draw_base) -> B.BsdfSample:
     """Sample the layered BSDF with a random walk.
 
     draw_base: per-lane uint32 seed (int64), derived by the caller from
-    the pixel sample stream. CUDA tensors launch the kernel (adding one to
-    `layered_sample.launches` and n to `coat.kernel_lanes`); CPU tensors
-    run `layered_sample_plain`."""
+    the pixel sample stream. CUDA tensors launch the kernel (adding n to
+    `coat.kernel_lanes`); CPU tensors run `layered_sample_plain`."""
     if not native_cuda.on_card("layered_sample", wo):
         return layered_sample_plain(params, wo, draw_base)
     return _sample_kernel(params, wo, draw_base)
@@ -496,7 +494,6 @@ def _eval_kernel(params: B.BsdfParams, wo, wi, steps=None):
     f = torch.empty_like(args[-1])
     if wo.shape[0]:
         _launch("tpu_rt_layered_eval", args, (f,), steps)
-        layered_eval.launches += 1
     return f
 
 
@@ -515,9 +512,4 @@ def _sample_kernel(params: B.BsdfParams, wo, draw_base,
     )
     if n:
         _launch("tpu_rt_layered_sample", args, out, steps)
-        layered_sample.launches += 1
     return out
-
-
-layered_eval.launches = 0
-layered_sample.launches = 0

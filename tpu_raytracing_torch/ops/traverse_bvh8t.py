@@ -113,8 +113,7 @@ def intersect_tris_bvh8t(ds: Accel, origin, direction, t_min, t_max,
 
     `ds` is an accel (traverse_kernels.py::accel_of): a DeviceScene's main
     tables or one BlasTables. CPU tensors take the plain walk; CUDA tensors
-    launch the kernel over its card layout (`ds.t8_card`), and each launch
-    adds one to `intersect_tris_bvh8t.launches[mode]`. `counts` (card
+    launch the kernel over its card layout (`ds.t8_card`). `counts` (card
     only) is launch_ray_kernel's."""
     dev = origin.device
     if dev.type == "cpu":
@@ -135,13 +134,8 @@ def intersect_tris_bvh8t(ds: Accel, origin, direction, t_min, t_max,
               ("t8_card.children", card.children, torch.float32),
               ("t8_card.tris", card.tris, torch.float32)]
     check_aligned(tables)
-    t, best = launch_ray_kernel(
-        "tpu_rt_bvh8t_walk", [*tables, ray_counter(dev)],
+    return launch_ray_kernel(
+        "bvh8t", early_exit, [*tables, ray_counter(dev)],
         origin, direction, t_min, t_max, active,
         [int(ds.meta.t8_width), int(early_exit)],
         counts)
-    intersect_tris_bvh8t.launches["any_hit" if early_exit else "closest_hit"] += 1
-    return t, best
-
-
-intersect_tris_bvh8t.launches = {"closest_hit": 0, "any_hit": 0}

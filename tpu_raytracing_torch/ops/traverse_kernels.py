@@ -17,11 +17,11 @@ environment variables, at call time, with the same defaults and rule:
 Every wrapper has the contract of intersect_tris_pallas: (t, best) with t
 the hit distance (t_max where there is none) and best the winning triangle
 in BVH order (-1 where there is none); inactive lanes return (t_max, -1).
-On a CUDA tensor it launches its kernel (csrc/*.cu) and adds one to
-`wrapper.launches[mode]`, or raises; a stack bound above the kernel's cap
-raises too (the JAX package degrades to its XLA walk there instead), and so
-does a table that the quad, pair or skip-link kernel cannot read with
-16-byte loads. On a CPU tensor it runs its plain version:
+On a CUDA tensor it launches its kernel (csrc/*.cu), which native_cuda
+counts under walk_common.launch_key, or raises; a stack bound above the
+kernel's cap raises too (the JAX package degrades to its XLA walk there
+instead), and so does a table that the quad, pair or skip-link kernel
+cannot read with 16-byte loads. On a CPU tensor it runs its plain version:
 
 - brute: `intersect_tris_brute_plain`, dense over the t8 groups, bit-equal
   to the kernel;
@@ -108,10 +108,6 @@ def intersect_tris(ds: Accel, origin, direction, t_min, t_max, active,
                                   early_exit)
 
 
-def _mode(early_exit: bool) -> str:
-    return "any_hit" if early_exit else "closest_hit"
-
-
 # --------------------------------------------------------------------------
 # K3: treeless brute force (csrc/t8_brute.cu)
 
@@ -183,12 +179,10 @@ def intersect_tris_brute(ds: Accel, origin, direction, t_min, t_max,
     if card.tris.data_ptr() % 16 or card.groups.data_ptr() % 16:
         raise ValueError("t8_card: the brute kernel's bulk copies read "
                          "16-byte-aligned tables")
-    t, best = launch_ray_kernel(
-        "tpu_rt_t8_brute", [("t8_card.tris", card.tris, _F32),
-                            ("t8_card.groups", card.groups, torch.int32)],
+    return launch_ray_kernel(
+        "brute", early_exit, [("t8_card.tris", card.tris, _F32),
+                              ("t8_card.groups", card.groups, torch.int32)],
         origin, direction, t_min, t_max, active, [rows], counts)
-    intersect_tris_brute.launches[_mode(early_exit)] += 1
-    return t, best
 
 
 # --------------------------------------------------------------------------
@@ -251,13 +245,11 @@ def intersect_tris_skiplink(ds: Accel, origin, direction, t_min, t_max,
     tables = [("bvh_nodes_pk", ds.bvh_nodes_pk, _F32),
               ("tri_pack_pk", ds.tri_pack_pk, _F32)]
     check_aligned(tables)
-    t, best = launch_ray_kernel(
-        "tpu_rt_skip_walk", [*tables, ray_counter(origin.device)],
+    return launch_ray_kernel(
+        "walk", early_exit, [*tables, ray_counter(origin.device)],
         origin, direction, t_min, t_max, active,
         [int(ds.meta.n_bvh_nodes), int(ds.meta.n_tris), int(early_exit)],
         counts)
-    intersect_tris_skiplink.launches[_mode(early_exit)] += 1
-    return t, best
 
 
 # --------------------------------------------------------------------------
@@ -357,13 +349,11 @@ def intersect_tris_pair(ds: Accel, origin, direction, t_min, t_max,
     tables = [("bvh2_rows_pk", ds.bvh2_rows_pk, _F32),
               ("tri_pack_pk", ds.tri_pack_pk, _F32)]
     check_aligned(tables)
-    t, best = launch_ray_kernel(
-        "tpu_rt_pair_walk", [*tables, ray_counter(origin.device)],
+    return launch_ray_kernel(
+        "pair", early_exit, [*tables, ray_counter(origin.device)],
         origin, direction, t_min, t_max, active,
         [int(ds.meta.root_meta), int(ds.meta.n_tris), int(early_exit)],
         counts)
-    intersect_tris_pair.launches[_mode(early_exit)] += 1
-    return t, best
 
 
 # --------------------------------------------------------------------------
@@ -492,8 +482,8 @@ def intersect_tris_quad_plain(ds: Accel, origin, direction, t_min,
         best[lanes] = bs
 
 
-def _quad(wrapper, rowrec: bool, ds: Accel, origin, direction, t_min,
-          t_max, active, early_exit: bool, counts):
+def _quad(rowrec: bool, ds: Accel, origin, direction, t_min, t_max,
+          active, early_exit: bool, counts):
     if not on_card("quad walk", origin):
         return intersect_tris_quad_plain(ds, origin, direction, t_min, t_max,
                                          active, early_exit, rowrec)
@@ -508,26 +498,25 @@ def _quad(wrapper, rowrec: bool, ds: Accel, origin, direction, t_min,
     _, _, root = _quad_tables(ds, rowrec)
     tables = [("bvh4 records", recs, _F32), ("bvh4 leaves", tris, _F32)]
     check_aligned(tables)
-    t, best = launch_ray_kernel(
-        "tpu_rt_quad_walk", [*tables, ray_counter(origin.device)],
+    return launch_ray_kernel(
+        "quadrow" if rowrec else "quad", early_exit,
+        [*tables, ray_counter(origin.device)],
         origin, direction, t_min, t_max, active,
         [root, int(ds.meta.n_tris), int(rowrec), int(early_exit)], counts)
-    wrapper.launches[_mode(early_exit)] += 1
-    return t, best
 
 
 def intersect_tris_quad(ds: Accel, origin, direction, t_min, t_max,
                         active, early_exit: bool = False, counts=None):
     """K4 `quad`: the BVH4 kernel over bvh4_recs_pk + tri_pack_pk."""
-    return _quad(intersect_tris_quad, False, ds, origin, direction, t_min,
-                 t_max, active, early_exit, counts)
+    return _quad(False, ds, origin, direction, t_min, t_max, active,
+                 early_exit, counts)
 
 
 def intersect_tris_quadrow(ds: Accel, origin, direction, t_min, t_max,
                            active, early_exit: bool = False, counts=None):
     """K4 `quadrow`: the BVH4 kernel over bvh4_rows + tri_rows."""
-    return _quad(intersect_tris_quadrow, True, ds, origin, direction, t_min,
-                 t_max, active, early_exit, counts)
+    return _quad(True, ds, origin, direction, t_min, t_max, active,
+                 early_exit, counts)
 
 
 WALKS = {
@@ -538,13 +527,3 @@ WALKS = {
     "pair": intersect_tris_pair,
     "walk": intersect_tris_skiplink,
 }
-for _w in (intersect_tris_brute, intersect_tris_quad, intersect_tris_quadrow,
-           intersect_tris_pair, intersect_tris_skiplink):
-    _w.launches = {"closest_hit": 0, "any_hit": 0}
-
-
-def reset_launch_counts() -> None:
-    """Set every walk's launch counts to 0."""
-    for w in WALKS.values():
-        for k in w.launches:
-            w.launches[k] = 0

@@ -1,9 +1,9 @@
 """What every triangle walk shares: the kernel launch and the plain leaf phase.
 
-- `launch_ray_kernel` checks a ray batch on the card and launches one C
-  entry of native_cuda (csrc/*.cu) on the current stream; `check_aligned`
-  and `ray_counter` serve the walks that read 16-byte records on a
-  persistent grid (bvh8t, quad, pair, skip-link).
+- `launch_ray_kernel` checks a ray batch on the card and launches a walk's
+  C entry of native_cuda (csrc/*.cu) on the current stream, counted under
+  `launch_key`; `check_aligned` and `ray_counter` serve the walks that read
+  16-byte records on a persistent grid (bvh8t, quad, pair, skip-link).
 - `no_hits` is the answer of an empty batch or scene.
 - `leaf_records`, `leaf_first_min` and `pop` are the pieces of the plain
   PyTorch walks: a leaf's triangle records, its first-minimum hit, and a
@@ -22,6 +22,17 @@ from .intersect import ray_triangle
 
 STACK_CAP = 64  # local-memory stack entries of the kernels (kStackCap)
 DONE = -1       # the node pointer of a lane whose walk has ended
+# each walk's C entry; quad and quadrow share one
+WALK_ENTRIES = {"bvh8t": "tpu_rt_bvh8t_walk", "brute": "tpu_rt_t8_brute",
+                "quad": "tpu_rt_quad_walk", "quadrow": "tpu_rt_quad_walk",
+                "pair": "tpu_rt_pair_walk", "walk": "tpu_rt_skip_walk"}
+
+
+def launch_key(walk: str, early_exit: bool) -> tuple[str, str]:
+    """The (entry, tag) under which native_cuda counts a launch of `walk`
+    in its mode."""
+    return (WALK_ENTRIES[walk],
+            f"{walk} {'any_hit' if early_exit else 'closest_hit'}")
 
 
 def pop(cur, sp, stack, rows, do):
@@ -80,10 +91,11 @@ def ray_counter(dev):
             torch.int32)
 
 
-def launch_ray_kernel(entry: str, tables, origin, direction, t_min, t_max,
-                      active, ints, counts=None):
-    """Check a ray batch on the card and launch the C entry `entry` of
-    native_cuda on the current stream; returns (t, best).
+def launch_ray_kernel(walk: str, early_exit: bool, tables, origin,
+                      direction, t_min, t_max, active, ints, counts=None):
+    """Check a ray batch on the card and launch the C entry of `walk` on
+    the current stream, counted under launch_key(walk, early_exit);
+    returns (t, best).
 
     tables: (name, tensor, dtype) of the scene tables the kernel reads, in
     its argument order; ints: the int arguments after n_rays; counts: None,
@@ -108,7 +120,8 @@ def launch_ray_kernel(entry: str, tables, origin, direction, t_min, t_max,
         check_tensor("counts", counts, (B, 3), torch.int32, dev)
         if not counts.is_contiguous():
             raise ValueError("counts: expected a contiguous tensor")
+    entry, tag = launch_key(walk, early_exit)
     launch(entry, dev, *[x.data_ptr() for x in tabs],
            *[x.data_ptr() for x in rays], t.data_ptr(), best.data_ptr(),
-           None if counts is None else counts.data_ptr(), B, *ints)
+           None if counts is None else counts.data_ptr(), B, *ints, tag=tag)
     return t, best

@@ -3,8 +3,9 @@
 Each probe is a microbenchmark with its own entry point, not part of the
 renderer. It has a hand-written CUDA kernel (csrc/probe_*.cu), a plain
 PyTorch version of the same function, a wrapper that launches the kernel
-for CUDA tensors (and counts the launch) or runs the plain version for CPU
-tensors, and a `main()` that times the kernel on the card:
+for CUDA tensors (native_cuda counts the launch under the probe's entry
+and its configuration) or runs the plain version for CPU tensors, and a
+`main()` that times the kernel on the card:
 
 - iter_cost (P3): ITERS iterations of a brute-group body, with and without
   a tile-wide drain that picks the next block
@@ -18,16 +19,4 @@ tensors, and a `main()` that times the kernel on the card:
 """
 from __future__ import annotations
 
-from . import bf16_vpu, iter_cost, slab_cost, walk_cost
-
-PROBES = {"probe_iter_cost": iter_cost.iter_cost,
-          "probe_bf16_vpu": bf16_vpu.bf16_vpu,
-          "probe_slab_cost": slab_cost.slab_cost,
-          "probe_walk_cost": walk_cost.walk_cost}
-
-
-def reset_launch_counts() -> None:
-    """Set every probe's launch counts to 0."""
-    for fn in PROBES.values():
-        for k in fn.launches:
-            fn.launches[k] = 0
+from . import bf16_vpu, iter_cost, slab_cost, walk_cost  # noqa: F401

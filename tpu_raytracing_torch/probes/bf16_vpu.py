@@ -38,14 +38,12 @@ from .common import best_ms, device_name, parse_args
 ITERS = 20000           # as in the script
 SHAPE = (16, 128)
 _SRC = "probe_bf16_vpu.cu"
-# the kernel's iterations a loop trip, its chains a thread a type, and so
-# the threads of its one block
+# the kernel's iterations a loop trip, and its chains a thread a type
 UNROLL = common.source_int(_SRC, "constexpr int kUnroll")
 CHAINS = {"float32": common.source_int(
               _SRC, "template <> constexpr int kChains<float2>"),
           "bfloat16": common.source_int(
               _SRC, "template <typename V> constexpr int kChains")}
-THREADS = {name: 1024 // c for name, c in CHAINS.items()}
 OPS_PER_ELEMENT = 11    # needed per iteration: mul, add, one axis pass
                         # (add, sub, 2 mul, 2 min, 2 max), mul
 WRITTEN_OPS = 27        # as written: the axis pass 3 times
@@ -85,12 +83,9 @@ def bf16_vpu(box, ray, iters: int = ITERS):
     out = torch.empty(SHAPE, dtype=torch.float32, device=dev)
     bf16 = box.dtype == torch.bfloat16
     launch("tpu_rt_probe_bf16_vpu", dev, *[x.data_ptr() for x in ins],
-           out.data_ptr(), int(bf16), iters)
-    bf16_vpu.launches["bfloat16" if bf16 else "float32"] += 1
+           out.data_ptr(), int(bf16), iters,
+           tag="bfloat16" if bf16 else "float32")
     return out
-
-
-bf16_vpu.launches = {name: 0 for name in DTYPES}
 
 
 def script_inputs(device="cpu"):
@@ -112,16 +107,6 @@ def loop_instructions(dtype: str) -> Counter | None:
     CHAINS[dtype] chains; None where it is not found."""
     tag = "14__nv_bfloat162" if dtype == "bfloat16" else "6float2"
     return common.loop_instructions(f"probe_bf16_vpuI{tag}E")
-
-
-def issue_per_clock(dtype: str, sass: Counter, iters: int, ms: float,
-                    clock: float) -> float:
-    """The kernel's warp instructions a clock at `clock` Hz over a run of
-    `ms` at `iters` iterations, from its loop body in SASS (`sass`,
-    loop_instructions): a loop trip runs UNROLL iterations of each of a
-    thread's chains, in THREADS[dtype] / 32 warps."""
-    return (sum(sass.values()) / UNROLL * THREADS[dtype] / 32 * iters
-            / (ms * 1e-3 * clock))
 
 
 def main(argv=None) -> list[dict]:

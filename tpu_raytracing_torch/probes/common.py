@@ -293,35 +293,3 @@ def source_int(source: str, decl: str) -> int:
     if m is None:
         raise LookupError(f"{source}: no line `{decl} = N;`")
     return int(m.group(1))
-
-
-def loops(kernel: str, library: Path | None = None) -> list[tuple]:
-    """Every loop of a kernel in SASS (the span from a backward branch's
-    target to the branch), widest first, as (first address, last address,
-    opcodes); an outer loop's opcodes include its inner loops'. Empty where
-    cuobjdump or the function is not found."""
-    found = _branches(kernel, library)
-    if found is None:
-        return []
-    ins, branches = found
-    spans = sorted({(b, a) for a, b in branches if b < a},
-                   key=lambda span: span[0] - span[1])
-    return [(lo, hi, Counter(o for a, o in ins if lo <= a <= hi))
-            for lo, hi in spans]
-
-
-def skipped_regions(kernel: str) -> list[Counter]:
-    """Opcodes of each region inside a kernel's widest loop that a forward
-    branch there skips (the instructions after the branch, up to its
-    target): the parts of a visit that not every warp, or not every visit,
-    runs. Empty where the loop is not found."""
-    found = _branches(kernel)
-    if found is None:
-        return []
-    ins, branches = found
-    loops = [(b, a) for a, b in branches if b < a]
-    if not loops:
-        return []
-    lo, hi = _widest(loops)
-    return [Counter(o for x, o in ins if a < x < b) for a, b in branches
-            if lo <= a < b <= hi]

@@ -146,12 +146,8 @@ def iter_cost(tris, o, d, t_min, R: int, roll: bool, dynamic: bool,
     out = torch.empty((R, LANE), dtype=_F32, device=dev)
     launch("tpu_rt_probe_iter_cost", dev, *[x.data_ptr() for x in ins],
            out.data_ptr(), None if counts is None else counts.data_ptr(),
-           R, int(chain), LOOPS.index(loop), iters)
-    iter_cost.launches[label(config)] += 1
+           R, int(chain), LOOPS.index(loop), iters, tag=label(config))
     return out
-
-
-iter_cost.launches = {label(c): 0 for c in CONFIGS}
 
 
 def sass_name(config, iters: int) -> str:

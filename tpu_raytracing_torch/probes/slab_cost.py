@@ -57,15 +57,6 @@ NODES = NB * 16  # nodes: a visit reads node q % NODES
 VARIANTS = ("floor", "cur", "hoist", "row0", "mxu")
 # the kernel's instantiation of each variant: hoist runs cur's
 KERNEL_OF = {"floor": 0, "cur": 1, "hoist": 1, "row0": 2, "mxu": 3}
-# the kernel's threads a variant (probe_slab_cost.cu::threads_of): the
-# rays, CUR_RAYS a thread (kCurRays; floor's block is cur's), of which 128
-# compare in floor; row0's 128 rays; and mxu's 6 groups x 128 columns,
-# MXU_COLS a thread (kCols)
-CUR_RAYS = 2
-MXU_COLS = 2
-THREADS = {"floor": R * LANE // CUR_RAYS, "cur": R * LANE // CUR_RAYS,
-           "hoist": R * LANE // CUR_RAYS, "row0": LANE,
-           "mxu": 6 * LANE // MXU_COLS}
 ITERS = int(os.environ.get("PROBE_ITERS", "4096"))  # as in the script
 _F32 = torch.float32
 _INF = float("inf")
@@ -189,12 +180,8 @@ def slab_cost(nodes, o, inv, t_min, act, variant: str, iters: int = ITERS,
     stats = torch.empty(2, dtype=torch.int32, device=dev)
     launch("tpu_rt_probe_slab_cost", dev, *[x.data_ptr() for x in ins],
            out.data_ptr(), None if visits is None else visits.data_ptr(),
-           stats.data_ptr(), KERNEL_OF[variant], iters)
-    slab_cost.launches[variant] += 1
+           stats.data_ptr(), KERNEL_OF[variant], iters, tag=variant)
     return out, stats
-
-
-slab_cost.launches = {v: 0 for v in VARIANTS}
 
 
 def script_inputs(device="cpu"):

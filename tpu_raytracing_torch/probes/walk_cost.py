@@ -60,10 +60,6 @@ TILES = 1        # ray tiles (the script's default)
 NODES = NB * 16  # nodes of the table
 GROUPS = NB * 12 # triangle groups of the table
 META_ROWS = 1024
-THREADS = R * LANE  # the kernel's one block, a ray a thread
-# its slot loop's slots a trip
-SLOT_UNROLL = common.source_int("probe_walk_cost.cu",
-                                "constexpr int kSlotUnroll")
 STACK = 64
 SP_CAP = 60
 PUSH_BASE = NODES // 2
@@ -95,10 +91,7 @@ def walk_cost_plain(nodes, tris, meta, o, d, t_min, level: str, iters: int,
     needed of what they computed: `slab_tests`, the (slot, ray) pairs of
     the slots below each visit's ni (the others are masked out of the
     drain), `leaf_trips`, and `leaf_tests`, the (triangle, ray) pairs of
-    the rays a trip's gate lets through; and how the kernel spreads those
-    rays over its warps (leaf_passes): `leaf_warps`, the warp trips that
-    find a gated ray, and `leaf_passes`, their passes of two rays; and
-    `slot_counts`, the visits by the slots they test."""
+    the rays a trip's gate lets through."""
     f = flags(level)
     dev = nodes.device
     ids = tris.contiguous().view(torch.int32)
@@ -112,8 +105,7 @@ def walk_cost_plain(nodes, tris, meta, o, d, t_min, level: str, iters: int,
     stack[0] = 1
     sp, ms, q = 1, 0, 0
     rec = Drains()
-    need = dict(slab_tests=0, leaf_trips=0, leaf_tests=0, leaf_warps=0,
-                leaf_passes=0, slot_counts=Counter())
+    need = dict(slab_tests=0, leaf_trips=0, leaf_tests=0)
     while q < iters and (not f["cond"] or ms >= 0):
         if f["smem"]:
             top = max(sp - 1, 0)
@@ -132,7 +124,6 @@ def walk_cost_plain(nodes, tris, meta, o, d, t_min, level: str, iters: int,
                 & (t0 <= t_best[:, None, :]))               # (R, W, LANE)
         mask_s = bits(hits.any(dim=2).any(dim=0)[:min(ni, W)])
         need["slab_tests"] += min(ni, W) * R * LANE
-        need["slot_counts"][min(ni, W)] += 1
         rec.add(mask_s)
         imask = mask_s & ((1 << ni) - 1)
         if f["when"]:
@@ -150,9 +141,6 @@ def walk_cost_plain(nodes, tris, meta, o, d, t_min, level: str, iters: int,
                 gate = hits[:, s_leaf, :]
                 need["leaf_trips"] += 1
                 need["leaf_tests"] += int(gate.sum()) * LG
-                warps, passes = leaf_passes(gate)
-                need["leaf_warps"] += warps
-                need["leaf_passes"] += passes
                 t_best, best = group(
                     tris, ids, o3[:, :, None, :], d3[:, :, None, :],
                     t_min[:, None, :], t_best, best, gq // 12, (gq % 12) * 10,
@@ -164,57 +152,6 @@ def walk_cost_plain(nodes, tris, meta, o, d, t_min, level: str, iters: int,
     if work is not None:
         work.update(need)
     return t_best + best.to(_F32), rec.finish(dev, visits)
-
-
-def leaf_passes(gate) -> tuple[int, int]:
-    """How the kernel's leaf trip (probe_walk_cost.cu::leaf_trip) spreads
-    the rays a gate (R, LANE) lets through: a warp takes its gated lanes
-    two a pass. Returns (the warps that find a gated ray, their passes)."""
-    per = gate.reshape(THREADS // 32, 32).sum(dim=1)
-    return int((per > 0).sum()), int(((per + 1) // 2).sum())
-
-
-def issue_per_clock(level: str, visits: int, work: dict, ms: float,
-                    clock: float) -> float | None:
-    """The kernel's warp instructions a clock at `clock` Hz over a run of
-    `ms` that ran `visits` visits, from the loops of its visit in SASS (the
-    built library) and the work walk_cost_plain counted for that run
-    (`work`): per visit and warp, the visit loop's instructions outside its
-    inner loops; from the smem level on (the slab level's 8 slots are
-    unrolled), the slot loop's (SLOT_UNROLL slots a trip) and its remainder
-    loop's (one) once a trip, as each visit's slot count divides among
-    them; on each leaf trip, the trip loop's instructions outside its pass
-    loop in every warp (a warp with no gated ray returns early: counted in
-    full), and the pass loop's once a warp pass (two gated rays,
-    leaf_passes). None where the loops are not as described."""
-    found = common.loops(f"probe_walk_costILi{LEVELS.index(level)}E")
-    if not found:
-        return None
-    size = lambda c: sum(c.values())  # noqa: E731
-    lo, hi, visit = found[0]
-    inner = [x for x in found[1:] if lo <= x[0] and x[1] <= hi]
-    passes = [x for x in inner if "MUFU.RCP" in x[2]]
-    trip = [x for x in inner if passes and x[0] <= passes[-1][0]
-            and passes[-1][1] <= x[1] and x is not passes[-1]]
-    # slots a trip of each slot loop, from its min / max: 12 a slot
-    slots = {x[2]["FMNMX"] // 12: size(x[2])
-             for x in inner if "FMNMX" in x[2] and "MUFU.RCP" not in x[2]}
-    if (work["leaf_trips"] and not (passes and trip)) or not (
-            set(slots) <= {SLOT_UNROLL, 1}):
-        return None
-    warps = THREADS // 32
-    trip_n = size(trip[-1][2]) if trip else 0
-    pass_n = size(passes[-1][2]) if passes else 0
-    slot_issued = sum(
-        n * (nt // SLOT_UNROLL * slots.get(SLOT_UNROLL, 0)
-             + nt % SLOT_UNROLL * slots.get(1, 0))
-        for nt, n in work["slot_counts"].items()) if slots else 0
-    issued = (visits * warps * (size(visit) - sum(slots.values())
-                                - (trip_n or pass_n))
-              + warps * slot_issued
-              + work["leaf_trips"] * warps * (trip_n - pass_n)
-              + work["leaf_passes"] * pass_n)
-    return issued / (ms * 1e-3 * clock)
 
 
 def walk_cost(nodes, tris, meta, o, d, t_min, level: str,
@@ -241,12 +178,8 @@ def walk_cost(nodes, tris, meta, o, d, t_min, level: str,
     stats = torch.empty(2, dtype=torch.int32, device=dev)
     launch("tpu_rt_probe_walk_cost", dev, *[x.data_ptr() for x in ins],
            out.data_ptr(), None if visits is None else visits.data_ptr(),
-           stats.data_ptr(), LEVELS.index(level), iters)
-    walk_cost.launches[level] += 1
+           stats.data_ptr(), LEVELS.index(level), iters, tag=level)
     return out, stats
-
-
-walk_cost.launches = {lv: 0 for lv in LEVELS}
 
 
 def script_inputs(device="cpu"):
