@@ -19,9 +19,10 @@ Phases (any failure exits nonzero and prints no result):
    and environment_light at theirs, native_cuda's launch counts reset
    just before each and read just after (every kernel of its path above
    0, no walk where there is no triangle, no any-hit walk where there is
-   no light); the normals-only scenes (sphere, cube, cube_orthographic)
-   and the textured cubes' albedo and mip-level AOVs at 400x400 on cuda
-   against cpu;
+   no light; the coat's, the shading and the hit_details kernels' launches
+   in the bunny frames); the normals-only scenes (sphere, cube,
+   cube_orthographic) and the textured cubes' albedo and mip-level AOVs at
+   400x400 on cuda against cpu;
 5. the kernel switch: the 500x500 frame at 1 spp, depth 8, rendered with
    bvh8t and then with each walk the JAX switch selects
    (TPU_RT_PALLAS_KERNEL, TPU_RT_BRUTE_GROUPS), only that walk launching,
@@ -61,7 +62,10 @@ Phases (any failure exits nonzero and prints no result):
    work from the kernel's per-ray counters; the coat's kernels on every
    call of one 1-spp bunny pass and the shading kernels on every call of
    one 1-spp rough_dielectric pass (the benchmark's lane counts), with
-   their bounds; and the probes' mains (P1 at 4,096 visits).
+   their bounds; the hit_details kernel on the bounce after the camera's
+   of one 1-spp rough_dielectric pass and of one bunny pass, with its byte
+   bound and its launches a pass; and the probes' mains (P1 at 4,096
+   visits).
 
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...},
 with the card's name and power limit on a line before them. Needs one CUDA
@@ -90,8 +94,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(1, os.path.join(ROOT, "tests"))
 
 from torch_fixtures import (  # noqa: E402
-    BUNNY_NODES, COAT_SETTINGS, bunnies_glb, coat_calls, path_rays,
-    shade_calls, textured_cubes, tiny_frame,
+    BUNNY_NODES, COAT_SETTINGS, bunnies_glb, coat_calls, hit_calls,
+    path_rays, shade_calls, textured_cubes, tiny_frame,
 )
 
 SCENE = "coated_diffuse_bunny"
@@ -147,6 +151,11 @@ COAT_LANE_BYTES = {"eval": 88, "sample": 105}  # read once, written once
 # draws and the sample (wi, f, pdf, component, valid)
 SHADE_SCENE = "rough_dielectric"
 SHADE_LANE_BYTES = {"eval": 60 + 12 + 12, "sample": 60 + 12 + 33}
+# the hit_details kernel (csrc/hit_details.cu) on the same passes; its
+# bound is a triangle lane's bytes: origin, direction, t and prim (32 B),
+# the tri_shade row's first 28 words (112 B), the nine outputs (69 B)
+HIT_KEY = ("tpu_rt_hit_details", "")
+HIT_LANE_BYTES = 32 + 112 + 69
 # the kernel switch: every walk finds the bvh8t walk's winners (t
 # bit-equal) except on equal-t ties between leaves, so the frames are the
 # same but for the pixels whose paths meet such a tie, and the coat
@@ -275,14 +284,17 @@ def walk_launches() -> dict:
 
 
 def layer_launches() -> dict:
-    """{"coat": {"eval": n, "sample": n}, "shade": {...}}: the coat's and
-    the shading kernel's launches since native_cuda's reset."""
+    """{"coat": {"eval": n, "sample": n}, "shade": {...}, "hit": {"details":
+    n}}: the coat's, the shading and the hit_details kernels' launches
+    since native_cuda's reset."""
     from tpu_raytracing_torch.native_cuda import launch_counts
 
     counts = launch_counts()
-    return {layer: {kind: counts.get((f"tpu_rt_{pre}_{kind}", ""), 0)
-                    for kind in ("eval", "sample")}
-            for layer, pre in (("coat", "layered"), ("shade", "bsdf"))}
+    out = {layer: {kind: counts.get((f"tpu_rt_{pre}_{kind}", ""), 0)
+                   for kind in ("eval", "sample")}
+           for layer, pre in (("coat", "layered"), ("shade", "bsdf"))}
+    out["hit"] = {"details": counts.get(HIT_KEY, 0)}
+    return out
 
 
 @contextlib.contextmanager
@@ -347,12 +359,13 @@ def phase_card_tests() -> None:
 def phase_frames(scene, settings, card: str, frames: dict) -> dict:
     """The rttest rows' frames on cuda with their launch patterns, and the
     AOV frames against cpu. Returns the launches: "bvh8t" -> mode -> n of
-    the bench frame, and per layer ("coat", "shade") row -> kind -> n."""
+    the bench frame, and per layer ("coat", "shade", "hit") row -> kind ->
+    n."""
     from tpu_raytracing_torch.device import compile_scene
     from tpu_raytracing_torch.scene.test_scenes import get_test_scene
     from tpu_raytracing_torch.settings import AovFlags
 
-    ok, out = True, {"coat": {}, "shade": {}}
+    ok, out = True, {"coat": {}, "shade": {}, "hit": {}}
     builtin = get_test_scene(SCENE).settings_func()
     builtin.outputs |= AovFlags.BEAUTY
     for row, s in ((BENCH_ROW, settings), (SCENE, builtin)):
@@ -364,7 +377,7 @@ def phase_frames(scene, settings, card: str, frames: dict) -> dict:
                   and min(n for c in layers.values() for n in c.values()) > 0)
         ok = ok and row_ok
         print(f"{frame_line(row, res, wall, s, card)}; bvh8t launches "
-              f"{walks['bvh8t']}, coat and shade {layers}: "
+              f"{walks['bvh8t']}, coat, shade and hit {layers}: "
               f"{'ok' if row_ok else 'FAIL'}", flush=True)
         frames[row] = ("RGB", img, s)
         if row == BENCH_ROW:
@@ -1119,6 +1132,39 @@ def shade_times(card: str) -> dict:
     return out
 
 
+def hit_times(card: str) -> dict:
+    """The hit_details kernel on the bounce after the camera's of one 1-spp
+    pass (COAT_SETTINGS) of rough_dielectric and of the bunny, 20 launches
+    timed, with the byte bound and the pass's launches. Returns scene ->
+    stats."""
+    from tpu_raytracing_torch.native_cuda import (
+        launch_counts, reset_launch_counts,
+    )
+    from tpu_raytracing_torch.ops.traverse import hit_details
+    from tpu_raytracing_torch.scene.test_scenes import get_test_scene
+    from tpu_raytracing_torch.settings import RaytracerSettings
+
+    out = {}
+    for name in (SHADE_SCENE, SCENE):
+        reset_launch_counts()
+        calls = hit_calls(get_test_scene(name).scene_func(),
+                          RaytracerSettings(**COAT_SETTINGS))
+        launches = launch_counts().get(HIT_KEY, 0)
+        ds, *lanes = calls[1]
+        n = lanes[0].shape[0]
+        ms = time_ms(lambda: hit_details(ds, *lanes), 20)
+        bound_ms, bound_by = bound_entry(0, n * HIT_LANE_BYTES)
+        print(f"# hit_details {name}: {len(calls)} calls a pass, "
+              f"{launches} kernel launches; kernel {ms:.4f} ms a call of "
+              f"{n} lanes; bound {bound_ms:.5f} ms (by {bound_by}), "
+              f"{bound_ms / ms * 100:.2f}% of the kernel time on {card}",
+              flush=True)
+        out[name] = dict(pass_calls=len(calls), lanes=n,
+                         pass_launches=launches, ms=ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    return out
+
+
 def probe_times(card: str) -> dict:
     """The probes' mains at the scripts' counts (P1 at P1_ITERS visits):
     each configuration's kernel time and launches. Returns name ->
@@ -1151,16 +1197,16 @@ def probe_times(card: str) -> dict:
 def phase_times(ds, scene, settings, card: str) -> dict:
     return dict(walks=walk_times(ds, settings, card),
                 coat=coat_times(scene, card), shade=shade_times(card),
-                probes=probe_times(card))
+                hit=hit_times(card), probes=probe_times(card))
 
 
 def kernel_entries(times: dict, frames: dict, switch: dict,
                    ptxas_log: str) -> list:
     """The {"kernels": [...]} entries: each kernel's time and bound
     (phase 9) and its ptxas lines. bvh8t's launches are the bench frame's
-    (phase 4), the other walks' their switch frame's (phase 5), the coat's
-    and the shading kernel's the bench frame's, with the builtin bunny
-    frame's beside them."""
+    (phase 4), the other walks' their switch frame's (phase 5), the coat's,
+    the shading and the hit_details kernels' the bench frame's, with the
+    builtin bunny frame's beside them."""
     kernels = []
     for kname, walk, modes, source, line in KERNELS:
         entry = dict(
@@ -1189,6 +1235,17 @@ def kernel_entries(times: dict, frames: dict, switch: dict,
                 builtin_frame_launches=frames[layer][SCENE][kind],
                 ptxas=ptxas_report(ptxas_log, name), library_ms=None,
                 library=f"none: no PyTorch call computes {lib}"))
+    hit = times["hit"]
+    kernels.append(dict(
+        name="hit_details_kernel", route="cuda",
+        source=CSRC + "hit_details.cu",
+        replaces="none: XLA code (tpu_raytracing/ops/traverse.py::"
+                 "hit_details)",
+        **hit[SHADE_SCENE], bunny=hit[SCENE],
+        launches=frames["hit"][BENCH_ROW]["details"],
+        builtin_frame_launches=frames["hit"][SCENE]["details"],
+        ptxas=ptxas_report(ptxas_log, "hit_details_kernel"), library_ms=None,
+        library="none: no PyTorch call computes hit details"))
     for name, source, replaces, key, main in PROBE_KERNELS:
         configs = times["probes"][name]
         head = next((c for c in configs if c[key] == main), configs[0])

@@ -1,5 +1,5 @@
-"""The CUDA walks, the coat kernel, the shading kernel and the probes on
-the card, against their plain PyTorch versions.
+"""The CUDA walks, the coat kernel, the shading kernel, the hit_details
+kernel and the probes on the card, against their plain PyTorch versions.
 
 Marked `cuda`: the kernels have no CPU mode, so these tests skip without a
 card. This file imports no jax and nothing of the JAX package (the machine
@@ -24,6 +24,7 @@ from tpu_raytracing_torch.native_cuda import launch_counts, reset_launch_counts
 from tpu_raytracing_torch.ops import bsdf as TB
 from tpu_raytracing_torch.ops import bsdf_dispatch as D
 from tpu_raytracing_torch.ops import layered as L
+from tpu_raytracing_torch.ops import traverse as TT
 from tpu_raytracing_torch.ops import traverse_kernels as TK
 from tpu_raytracing_torch.ops.traverse_bvh8t import (
     intersect_tris_bvh8t, intersect_tris_plain,
@@ -34,13 +35,14 @@ from tpu_raytracing_torch.probes import bf16_vpu as P4
 from tpu_raytracing_torch.probes import iter_cost as P3
 from tpu_raytracing_torch.probes import slab_cost as P2
 from tpu_raytracing_torch.probes import walk_cost as P1
+from tpu_raytracing_torch.scene import scene_from_file
 from tpu_raytracing_torch.scene.test_scenes import get_test_scene
 from tpu_raytracing_torch.settings import RaytracerSettings
 
 from torch_fixtures import (
     COAT_SETTINGS, EXACT, PERSISTENT, at_t_limits, axis_limits, axis_rays,
     bsdf_lanes, bunnies_glb, coat_calls, compare_trees, edge_rays,
-    emissive_box, path_rays, repeated_triangles, shade_calls,
+    emissive_box, hit_calls, path_rays, repeated_triangles, shade_calls,
     textured_cubes,
 )
 
@@ -1299,6 +1301,149 @@ def test_shade_frame_with_plain_twins_bit_for_bit(card, monkeypatch, name):
     assert _n(SHADE["sample"]) > launched[1]
     monkeypatch.setattr(R, "bsdf_eval", D.bsdf_eval_plain)
     monkeypatch.setattr(R, "bsdf_sample", D.bsdf_sample_plain)
+    b = render_accumulated(scene, s, spp_chunk=1)
+    assert a.beauty.mean() > 0 and a.rays_traced == b.rays_traced
+    np.testing.assert_array_equal(a.beauty.view(np.int32),
+                                  b.beauty.view(np.int32))
+
+
+# ------------------------------------------------------- hit_details kernel
+
+HIT = ("tpu_rt_hit_details", "")
+
+
+def _hit_scene(name, tmp_path_factory):
+    """A scene of each hit_details branch: rough_dielectric's triangles
+    and sphere at the benchmark's 500x500; the bunny's shading-normal
+    triangles, the four-bunny instanced glTF and the textured cubes' uv
+    corners smaller."""
+    if name == "bunnies":
+        path = tmp_path_factory.mktemp("hit") / "bunnies.glb"
+        bunnies_glb(path, instanced=True)
+        scene = scene_from_file(str(path))
+    elif name == "textured":
+        return textured_cubes(160)
+    else:
+        scene = get_test_scene(name).scene_func()
+    if name != "rough_dielectric":
+        scene.camera = scene.camera.with_resolution(160, 160)
+    return scene
+
+
+@pytest.fixture(scope="module")
+def hit_passes(card, tmp_path_factory):
+    """name -> (every hit_details call of one 1-spp pass at the benchmark's
+    depth and light samples, the kernel launches the pass took)."""
+    out = {}
+    for name in ("rough_dielectric", "coated_diffuse_bunny", "bunnies",
+                 "textured"):
+        scene = _hit_scene(name, tmp_path_factory)
+        launched = _n(HIT)
+        calls = hit_calls(scene, RaytracerSettings(**COAT_SETTINGS))
+        out[name] = (calls, _n(HIT) - launched)
+    return out
+
+
+def _hit_same(ds, *lanes) -> list:
+    """The fields where the kernel's Hit differs from the plain twin's on
+    the card, bit for bit; one launch a call."""
+    launched = _n(HIT)
+    got = TT.hit_details(ds, *lanes)
+    assert _n(HIT) == launched + 1
+    want = TT.hit_details_plain(ds, *lanes)
+    assert got.prim is lanes[3]
+    return [f for f, a, b in zip(TT.Hit._fields, got, want)
+            if not _same_bits(a, b)]
+
+
+@pytest.mark.parametrize("name", ["rough_dielectric", "coated_diffuse_bunny",
+                                  "bunnies", "textured"])
+def test_hit_kernel_vs_plain(hit_passes, name):
+    """Every call of a pass, field by field and bit for bit; the pass's
+    bounces all went through the kernel, one launch each."""
+    calls, launches = hit_passes[name]
+    assert calls and launches == len(calls)
+    if name == "rough_dielectric":
+        assert len(calls) == COAT_SETTINGS["max_ray_depth"] + 1
+    ds = calls[0][0]
+    kinds = {"sphere": 0, "instance": 0, "miss": 0}
+    for ds, *lanes in calls:
+        prim = lanes[3]
+        kinds["miss"] += int((prim < 0).sum())
+        if ds.meta.n_spheres:
+            kinds["sphere"] += int(((prim >= ds.meta.n_tris)
+                                    & (prim < ds.meta.inst_vtri_base0)).sum())
+        if ds.meta.instances:
+            kinds["instance"] += int((prim >= ds.meta.inst_vtri_base0).sum())
+        assert _hit_same(ds, *lanes) == [], prim.shape[0]
+    assert kinds["miss"] > 0
+    assert (kinds["sphere"] > 0) == (name == "rough_dielectric")
+    assert (kinds["instance"] > 0) == (name == "bunnies")
+
+
+@pytest.mark.parametrize("n", [1, 255, 4099])
+def test_hit_kernel_padded_tail(hit_passes, n):
+    """A bounce's lanes cut to n, then a tail of 37 misses (prim -1, t
+    inf), as a padded chunk hands them over."""
+    ds, o, d, t, prim = hit_passes["rough_dielectric"][0][1]
+    dev = o.device
+    tail = 37
+    lanes = (torch.cat([o[:n], torch.zeros(tail, 3, device=dev)]),
+             torch.cat([d[:n], torch.ones(tail, 3, device=dev)]),
+             torch.cat([t[:n], torch.full((tail,), float("inf"),
+                                          device=dev)]),
+             torch.cat([prim[:n], torch.full((tail,), -1, dtype=torch.int32,
+                                             device=dev)]))
+    assert _hit_same(ds, *lanes) == []
+    got = TT.hit_details(ds, *lanes)
+    assert not bool(got.hit[n:].any())
+    assert bool((got.light[n:] == -1).all())
+
+
+def _hit_table_variant(ds, variant: str):
+    """ds with every tri_shade row made one way: "no_normals" (has_n 0,
+    so the geometric normal), "degenerate_uv" (has_uv 1 and one uv at the
+    three corners, so det 0 and zero dpdu, dpdv)."""
+    rows = ds.tri_shade.clone()
+    ints = rows.view(torch.int32)
+    if variant == "no_normals":
+        ints[:, 26] = 0
+    else:
+        ints[:, 27] = 1
+        rows[:, 18:24] = torch.tensor([0.25, 0.5] * 3, device=rows.device)
+    return dataclasses.replace(ds, tri_shade=rows)
+
+
+@pytest.mark.parametrize("variant", ["no_normals", "degenerate_uv"])
+@pytest.mark.parametrize("name", ["rough_dielectric", "bunnies"])
+def test_hit_kernel_table_variants(hit_passes, name, variant):
+    """The first two bounces of a pass over the scene's rows without
+    shading normals, or with a degenerate uv triangle."""
+    for ds, *lanes in hit_passes[name][0][:2]:
+        assert _hit_same(_hit_table_variant(ds, variant), *lanes) == []
+
+
+def test_hit_kernel_empty_call_launches_nothing(hit_passes):
+    ds, *lanes = hit_passes["rough_dielectric"][0][0]
+    launched = _n(HIT)
+    got = TT.hit_details(ds, *(x[:0] for x in lanes))
+    assert got.uv.shape == (0, 2) and got.point.shape == (0, 3)
+    assert _n(HIT) == launched
+
+
+@pytest.mark.parametrize("name", ["rough_dielectric", "bunnies"])
+def test_hit_frame_with_plain_twin_bit_for_bit(card, tmp_path_factory,
+                                               monkeypatch, name):
+    """A small frame through render_accumulated(spp_chunk=1): the same
+    image with the kernel and with the plain twin routed in."""
+    scene = _hit_scene(name, tmp_path_factory)
+    scene.camera = scene.camera.with_resolution(48, 40)
+    s = RaytracerSettings(samples_per_pixel=2, light_sample_count=4,
+                          max_ray_depth=8)
+    launched = _n(HIT)
+    a = render_accumulated(scene, s, spp_chunk=1)
+    assert _n(HIT) > launched
+    monkeypatch.setattr(R, "hit_details", TT.hit_details_plain)
     b = render_accumulated(scene, s, spp_chunk=1)
     assert a.beauty.mean() > 0 and a.rays_traced == b.rays_traced
     np.testing.assert_array_equal(a.beauty.view(np.int32),

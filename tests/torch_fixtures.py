@@ -15,7 +15,8 @@ card check (chip_smoke.py).
   tests/test_parallel.py's 37x27 checkered_plane.
 - Shading: `bsdf_lanes` (seeded lanes for the BSDF dispatch), `coat_calls`
   and `shade_calls` (every coat or dispatch call of one render, its inputs
-  cloned), at `COAT_SETTINGS`, the benchmark's pass.
+  cloned), at `COAT_SETTINGS`, the benchmark's pass; `hit_calls` (every
+  hit_details call of one render, its inputs cloned).
 
 Imports neither jax nor the JAX package (tests/test_torch_isolation.py).
 """
@@ -597,4 +598,23 @@ def shade_calls(scene, settings) -> list:
             mock.patch.object(R, "bsdf_sample",
                               recorder("sample", R.bsdf_sample)):
         R.render(scene, settings)
+    return calls
+
+
+def hit_calls(scene, settings, device="cuda") -> list:
+    """Every hit_details call of one render of `scene` on `device`, its
+    inputs cloned as the integrator hands them over: (ds, origin,
+    direction, t, prim)."""
+    from unittest import mock
+
+    from tpu_raytracing_torch.integrator import render as R
+
+    calls, fn = [], R.hit_details
+
+    def run(ds, *args):
+        calls.append((ds, *(x.clone() for x in args)))
+        return fn(ds, *args)
+
+    with mock.patch.object(R, "hit_details", run):
+        R.render(scene, settings, device=device)
     return calls

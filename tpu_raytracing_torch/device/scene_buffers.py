@@ -239,6 +239,8 @@ class DeviceScene:
     inst_xf: torch.Tensor        # (max(1, I), 32) f32 o2w | w2o row-major
     inst_aabb_min: torch.Tensor  # (max(1, I), 3) f32 instance world box
     inst_aabb_max: torch.Tensor
+    inst_bases: torch.Tensor     # (2, I) i32 per instance: vtri base
+                                 # (ascending), tri_shade row offset
     t8_card: Bvh8tCard           # the bvh8t kernel's layout of t8_*
     blas_tables: Tuple[BlasTables, ...]
     meta: SceneMeta
@@ -255,7 +257,7 @@ Accel = Union[DeviceScene, BlasTables]
 # the tables that have a JAX leaf of the same name
 LEAF_NAMES = tuple(
     f.name for f in dataclasses.fields(DeviceScene)
-    if f.name not in ("meta", "t8_card", "blas_tables")
+    if f.name not in ("meta", "inst_bases", "t8_card", "blas_tables")
 )
 
 
@@ -1357,6 +1359,10 @@ def _to_device(leaves: dict, blas, meta: SceneMeta, device) -> DeviceScene:
     w, lg = meta.t8_width, meta.t8_leaf
     return DeviceScene(
         **{k: _tensor(leaves[k], device) for k in LEAF_NAMES},
+        inst_bases=torch.tensor(
+            [[vb for _, vb, _, _ in meta.instances],
+             [so for *_, so in meta.instances]],
+            dtype=torch.int32, device=device),
         t8_card=bvh8t_card(leaves["t8_nodes"], leaves["t8_meta"],
                            leaves["t8_tris"], w, lg, device),
         blas_tables=tuple(

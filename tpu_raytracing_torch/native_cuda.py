@@ -145,6 +145,10 @@ SIGNATURES = {
     "tpu_rt_bsdf_sample": [_P] * 14 + [_I, _I, _P],
     # the eval's seven inputs, u2, u1, wi_out, f_out, pdf_out, comp_out,
     # valid_out | kinds, n | stream
+    "tpu_rt_hit_details": [_P] * 22 + [_I] * 7 + [_P],
+    # tri_shade, the six sphere tables, inst_xf, inst_bases, origin,
+    # direction, t, prim, the nine outputs | n, n_tris, tri_shade rows,
+    # n_spheres, sphere rows, n_inst, inst_vtri_base0 | stream
 }
 
 

@@ -9,6 +9,10 @@ takes the best t so far as its t_max. The triangle query goes through
 ops/traverse_kernels.py, which picks the walk as the JAX kernel switch does
 and runs its CUDA kernel on the card and its plain version on the CPU.
 
+`hit_details` expands a winner into its shading geometry: on the card by
+one kernel a call (csrc/hit_details.cu), on the CPU by its predicated
+plain twin, `hit_details_plain`.
+
 Winning primitive encoding: 0 <= prim < n_tris -> triangle index (BVH
 order); n_tris <= prim < inst_vtri_base0 -> sphere prim - n_tris; then
 one block of virtual triangle ids per instance (vtri_base + the BLAS's
@@ -20,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import tracing
+from .. import native_cuda, tracing
 from ..device.scene_buffers import DeviceScene
 from ..utils import raydump
 from .intersect import ray_aabb, ray_sphere, ray_triangle, sphere_hit_geom
@@ -28,6 +32,7 @@ from .linalg import (
     apply_point, apply_vector, apply_vector_transposed, cross, normalize,
 )
 from .traverse_kernels import intersect_tris
+from .walk_common import check_aligned
 
 INF = float("inf")
 
@@ -119,11 +124,22 @@ def occluded(ds: DeviceScene, origin, direction, t_min, t_max, active=None):
 
 def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
     """Expand an encoded (t, prim) result into full shading geometry.
-    Triangles interpolate in world space; an instanced triangle is
-    decoded to its BLAS's object-space shade row, recomputed with the
-    object-space ray and transformed out (the normal by the inverse
-    transpose); spheres are recomputed in object space and transformed
-    out."""
+
+    CUDA tensors launch csrc/hit_details.cu, one thread a lane, bit for
+    bit with the plain version (adding the lanes to the traced counter
+    `hit.kernel_lanes`); CPU tensors run `hit_details_plain`."""
+    if not native_cuda.on_card("hit_details", origin):
+        return hit_details_plain(ds, origin, direction, t, prim)
+    return _hit_kernel(ds, origin, direction, t, prim)
+
+
+def hit_details_plain(ds: DeviceScene, origin, direction, t,
+                      prim) -> Hit:
+    """`hit_details` predicated over every lane. Triangles interpolate in
+    world space; an instanced triangle is decoded to its BLAS's
+    object-space shade row, recomputed with the object-space ray and
+    transformed out (the normal by the inverse transpose); spheres are
+    recomputed in object space and transformed out."""
     n_tris = ds.meta.n_tris
     instances = ds.meta.instances
     hit = prim >= 0
@@ -240,3 +256,55 @@ def hit_details(ds: DeviceScene, origin, direction, t, prim) -> Hit:
         material=torch.where(hit, material, torch.zeros_like(prim)),
         light=torch.where(hit, light, torch.full_like(prim, -1)),
     )
+
+
+# ------------------------------------------------------- the card's kernel
+
+def _hit_kernel(ds: DeviceScene, origin, direction, t, prim) -> Hit:
+    """`hit_details` by one launch of csrc/hit_details.cu: the scene
+    tables and the lanes checked, the outputs allocated here."""
+    n, dev = origin.shape[0], ds.device
+    f32, i32 = torch.float32, torch.int32
+    S, X = ds.sph_center.shape[0], ds.inst_xf.shape[0]
+    check_aligned([("hit_details: tri_shade", ds.tri_shade, f32),
+                   ("hit_details: sph_o2w", ds.sph_o2w, f32),
+                   ("hit_details: sph_w2o", ds.sph_w2o, f32),
+                   ("hit_details: inst_xf", ds.inst_xf, f32)])
+    args = [native_cuda.check_tensor(f"hit_details: {name}", x, shape,
+                                     dtype, dev)
+            for name, x, dtype, shape in (
+                ("tri_shade", ds.tri_shade, f32, (ds.tri_shade.shape[0], 32)),
+                ("sph_center", ds.sph_center, f32, (S, 3)),
+                ("sph_radius", ds.sph_radius, f32, (S,)),
+                ("sph_o2w", ds.sph_o2w, f32, (S, 4, 4)),
+                ("sph_w2o", ds.sph_w2o, f32, (S, 4, 4)),
+                ("sph_mat", ds.sph_mat, i32, (S,)),
+                ("sph_light", ds.sph_light, i32, (S,)),
+                ("inst_xf", ds.inst_xf, f32, (X, 32)),
+                ("inst_bases", ds.inst_bases, i32,
+                 (2, len(ds.meta.instances))),
+                ("origin", origin, f32, (n, 3)),
+                ("direction", direction, f32, (n, 3)),
+                ("t", t, f32, (n,)),
+                ("prim", prim, i32, (n,)))]
+    hit = Hit(
+        hit=torch.empty(n, dtype=torch.bool, device=dev),
+        t=torch.empty(n, dtype=f32, device=dev),
+        prim=prim,
+        uv=torch.empty((n, 2), dtype=f32, device=dev),
+        point=torch.empty((n, 3), dtype=f32, device=dev),
+        normal=torch.empty((n, 3), dtype=f32, device=dev),
+        dpdu=torch.empty((n, 3), dtype=f32, device=dev),
+        dpdv=torch.empty((n, 3), dtype=f32, device=dev),
+        material=torch.empty(n, dtype=i32, device=dev),
+        light=torch.empty(n, dtype=i32, device=dev),
+    )
+    if n:
+        m = ds.meta
+        native_cuda.launch(
+            "tpu_rt_hit_details", dev,
+            *(x.data_ptr() for x in (*args, *hit[:2], *hit[3:])),
+            n, m.n_tris, ds.tri_shade.shape[0], m.n_spheres, S,
+            len(m.instances), m.inst_vtri_base0)
+        tracing.count("hit.kernel_lanes", n)
+    return hit
